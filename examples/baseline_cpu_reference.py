@@ -52,7 +52,7 @@ def main():
     print(f"  {cycles_per_sec:6.1f} V(1,0)-cycles/s  ->  {ess:6.1f} ESS/sec "
           f"(tau={TAU})")
     print("bench.py BASELINE_ESS_PER_SEC rounds this up in the reference's "
-          "favour (see BENCH_NOTES.md).")
+          "favour (see BASELINE.md).")
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 Reference: ``/root/reference/examples/ex13.py:29-30`` runs
 ``-pc_type cholsampler`` (sparse MKL Pardiso factorization,
 pc_chols.c:17-27) standalone on the refined wrench mesh as the exact
-baseline that MGMC is compared against.  This drives the TPU rebuild's
+baseline that MGMC is compared against.  This drives the JAX rebuild's
 equivalent — :class:`SparseCholeskySampler` (host-side sparse LDL^T) —
 on the same mesh at 100k+ DOFs and cross-validates MGMC posterior
 moments against it.
@@ -151,4 +151,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from parmgmc_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

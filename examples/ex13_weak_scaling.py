@@ -4,7 +4,7 @@ Reference: /root/reference/examples/ex13.py — wrench-mesh weak scaling
 (refinements grow with MPI ranks in {1,8,64,512}), printing DOFs, wall
 time per sample, IACT and time per independent sample.
 
-Here the scaling axis is TPU devices over a ``jax.sharding.Mesh``: the
+Here the scaling axis is devices over a ``jax.sharding.Mesh``: the
 3D GMRF grows with the device count while the per-device block stays
 fixed, the same chain code runs sharded (GSPMD inserts the halo
 collectives), and we report the same metrics.  On a CPU host this runs
@@ -37,7 +37,7 @@ from parmgmc_tpu.samplers.mgmc import MGMCSampler
 def run_config(n_dev: int, base: int, n_samples: int, kappa: float):
     shape = (base * n_dev, base, base)
     op = shifted_laplace_fd(shape, kappa, dtype=jnp.float32)
-    smp = MGMCSampler.create(op, n_pre=1, n_post=1, coarsest_size=128, impl="lax")
+    smp = MGMCSampler.create(op, n_pre=1, n_post=1, coarsest_size=128)
     b = jnp.zeros(shape, jnp.float32)
     qoi = lambda x: jnp.mean(x)
 
@@ -54,7 +54,7 @@ def run_config(n_dev: int, base: int, n_samples: int, kappa: float):
     )
     st = ChainState(x=x0, key=jax.random.PRNGKey(0))
     st, q = run(smp, st, b)
-    _ = float(jnp.sum(st.x))  # fence
+    jax.block_until_ready(st.x)
     t0 = time.perf_counter()
     st, q = run(smp, st, b)
     q = np.asarray(q)
@@ -74,7 +74,7 @@ def run_mesh_config(n_dev: int, n_refine: int, n_samples: int, kappa: float):
     """Unstructured weak scaling: ranks -> devices via CHAIN parallelism.
 
     The reference's wrench ex13 grows the mesh with ranks under domain
-    decomposition; graph sweeps are gather-bound, so the TPU-native
+    decomposition; graph sweeps are gather-bound, so the data-parallel
     scaling axis for meshes is independent chains (SURVEY §2.3 item 4 —
     the reference runs chains serially).  One chain per device; reported
     throughput is TOTAL ESS/sec across chains.
@@ -112,7 +112,7 @@ def run_mesh_config(n_dev: int, n_refine: int, n_samples: int, kappa: float):
     )
     sts = jax.vmap(lambda k, x: ChainState(x=x, key=k))(keys, x0)
     sts, q = run(smp, sts, b)
-    _ = float(jnp.sum(sts.x))
+    jax.block_until_ready(sts.x)
     t0 = time.perf_counter()
     sts, q = run(smp, sts, b)
     q = np.asarray(q)
@@ -195,7 +195,7 @@ def run_mesh_dd_config(
         lambda key, x: jax.lax.scan(body, (key, x), None, length=n_samples)
     )
     (key, x), q = run(jax.random.PRNGKey(0), x0)
-    _ = float(jnp.sum(x))
+    jax.block_until_ready(x)
     t0 = time.perf_counter()
     (key, x), q = run(key, x)
     q = np.asarray(q)
@@ -262,4 +262,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from parmgmc_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -59,4 +59,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from parmgmc_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

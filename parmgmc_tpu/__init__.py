@@ -1,12 +1,12 @@
-"""parmgmc_tpu — TPU-native Multigrid Monte Carlo sampling of Gaussians.
+"""parmgmc_tpu — Multigrid Monte Carlo sampling of Gaussians in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of ParMGMC
+A from-scratch JAX/XLA rebuild of the capabilities of ParMGMC
 (https://github.com/nilsfriess/ParMGMC): samplers for high-dimensional
 Gaussian distributions N(A^{-1} f, A^{-1}) with sparse SPD precision
 operators, including Gibbs/SOR samplers, exact Cholesky samplers,
 Multigrid Monte Carlo, and low-rank-updated posteriors for Bayesian
-linear inverse problems — designed for TPU device meshes via
-``shard_map``/``pjit`` rather than MPI domain decomposition.
+linear inverse problems — designed for GPU device meshes via
+``shard_map``/``jit`` sharding rather than MPI domain decomposition.
 """
 
 __version__ = "0.1.0"
@@ -29,5 +29,5 @@ from parmgmc_tpu.samplers.patch_gibbs import (  # noqa: E402,F401
     PatchGibbsSampler,
 )
 from parmgmc_tpu.samplers.sor import NaturalGibbsSampler  # noqa: E402,F401
-from parmgmc_tpu.samplers.registry import build_sampler, lax_variant  # noqa: E402,F401
+from parmgmc_tpu.samplers.registry import build_sampler  # noqa: E402,F401
 from parmgmc_tpu.describe import describe  # noqa: E402,F401

@@ -1,4 +1,4 @@
-"""Chain drivers: the TPU-native replacement for KSPRICHARDSON chains.
+"""Chain drivers: the JAX replacement for KSPRICHARDSON chains.
 
 In the reference, a sampling chain is ``KSPSolve`` with KSPRICHARDSON,
 norms disabled and ``max_it = n_samples``, observing the stream through a
@@ -23,7 +23,6 @@ __all__ = [
     "ChainState",
     "init_chain",
     "sample_chain",
-    "sample_chain_deferred",
     "sample_moments",
     "multi_chain",
 ]
@@ -104,58 +103,6 @@ def sample_chain(
     return state, out
 
 
-def sample_chain_deferred(
-    sampler,
-    state: ChainState,
-    b: jax.Array,
-    n_samples: int,
-):
-    """(state, qoi_means): mean-QOI chain on a LAZY sampler state.
-
-    Drives samplers exposing ``step_deferred`` / ``materialize_deferred``
-    (MGMCSampler with the fused chain kernel): the fine-level prolong-add
-    is deferred into the next step's kernel and the recorded QOI — the
-    global mean of each sample, the benchmark/IACT observable — comes
-    from the kernel's row sums, so no step ever re-reads the fine grid.
-    Produces the bit-identical sample sequence to ``sample_chain`` with
-    ``extract=jnp.mean`` (same keys, same add order), minus ~1.6
-    fine-grid HBM passes per step.  The returned state is materialised.
-
-    QOI assembly runs one step late: the kernel emits the z part of
-    sample t's sum while streaming zx2 during step t+1 (see
-    ``step_deferred``), so the scan emits q_{t-1} at step t and the last
-    sample's mean is completed after the scan — no step re-reads zx2.
-    """
-    import math
-
-    npts = math.prod(sampler.grid_shape)
-    if n_samples == 0:
-        return state, jnp.zeros((0,), state.x.dtype)
-
-    def step_fn(carry, _):
-        key, xpy, z, sx_prev = carry
-        key, xpy, z, sx, zs_prev = sampler.step_deferred(key, xpy, z, b)
-        # zs_prev completes the PREVIOUS sample's global sum
-        return (key, xpy, z, sx), (sx_prev + zs_prev) / npts
-
-    (key, xpy, z, sx_last), q = jax.lax.scan(
-        step_fn,
-        (
-            state.key,
-            state.x,
-            # the starting state seeds the carry (the posterior route
-            # carries B^T x alongside z — zero only for zero starts)
-            sampler.deferred_init(state.x.dtype, state.x),
-            jnp.zeros((), state.x.dtype),
-        ),
-        None,
-        length=n_samples,
-    )
-    q_last = (sx_last + sampler.deferred_final_sum(z)) / npts
-    q = jnp.concatenate([q[1:], q_last[None]])
-    return ChainState(x=sampler.materialize_deferred(xpy, z), key=key), q
-
-
 def sample_moments(
     sampler,
     state: ChainState,
@@ -200,13 +147,6 @@ def multi_chain(fn: Callable, n_chains: int):
     """vmap a chain function over a leading axis of keys/states.
 
     The reference runs multiple chains serially (``examples/ex6.c:
-    184-188``, ``ex7.c:198-216``); on TPU the chain axis vectorizes.
-
-    Fused-Pallas samplers (``impl="fused_fd"``, auto-selected on TPU at
-    256^3+ sizes) do NOT vmap — their manual in-kernel DMA cannot be
-    re-indexed by the batching rule and Mosaic rejects the lowering.
-    Wrap the sampler with :func:`parmgmc_tpu.samplers.registry.
-    lax_variant` first (and see its docstring for why batching fused
-    chains would not pay at those sizes anyway).
+    184-188``, ``ex7.c:198-216``); here the chain axis vectorizes.
     """
     return jax.vmap(fn)

@@ -6,7 +6,7 @@ The reference prints composed-PC configurations through PETSc's viewer
 factor nonzeros (``src/pc_chols.c:383-396``), gamgmc recurses into the
 per-level smoothers.  Here samplers are frozen pytrees, so the summary
 walks the tree and reports the same operational facts: grids, colour
-counts, kernel implementation, omega/sweep, factor sizes, hierarchy
+counts, omega/sweep, factor sizes, hierarchy
 depth.  Use it to sanity-check a registry-built config without reading
 pytrees by hand::
 
@@ -79,8 +79,7 @@ def describe(sampler, _indent: int = 0) -> str:
         lrc = ", low-rank corrected" if sampler.is_lrc else ""
         lines.append(
             f"{pad}GibbsSampler on {_op_line(base)}: {ncolors} colours, "
-            f"omega={float(sampler.omega):g}, sweep={sampler.sweep}, "
-            f"impl={sampler.impl}{lrc}"
+            f"omega={float(sampler.omega):g}, sweep={sampler.sweep}{lrc}"
         )
     elif t == "CholeskySampler":
         n = sampler.L.shape[0]
@@ -94,8 +93,7 @@ def describe(sampler, _indent: int = 0) -> str:
         lines.append(
             f"{pad}PatchGibbsSampler on {_op_line(sampler.base)}: "
             f"{k}-node star patches, {sampler.ncolor_base ** d} colours, "
-            f"on-the-fly unrolled {k}x{k} Cholesky (SoA), "
-            f"impl={getattr(sampler, 'impl', 'lax')}"
+            f"on-the-fly unrolled {k}x{k} Cholesky (SoA)"
         )
     elif t == "SparseCholeskySampler":
         nnzL = sampler._lu.L.nnz

@@ -1,6 +1,6 @@
 """Cross-chain statistics: covariance-error trajectories and Gelman-Rubin.
 
-TPU-native rebuild of ``/root/reference/src/stats.c`` (sample-covariance
+JAX rebuild of ``/root/reference/src/stats.c`` (sample-covariance
 Frobenius error vs the exact covariance A^{-1}) and the Gelman-Rubin
 R-hat of ``examples/ex7.c:61-91``.  Where the reference loops over Vec
 arrays per sample index, we batch everything: samples arrive as a single

@@ -163,7 +163,7 @@ def masked_grid_mesh(bbox, h, inside, jitter: float = 0.15, seed: int = 0):
     whose centroid satisfies ``inside(points) -> bool mask``, unused
     nodes dropped, interior nodes jittered deterministically.
 
-    The TPU-side framework only needs *some* family of irregular
+    The device-side framework only needs *some* family of irregular
     simplicial meshes to exercise the unstructured path (the reference
     gets its wrench/lshape geometries from external CAD + Gmsh, which
     this repo deliberately does not depend on); degree variation comes

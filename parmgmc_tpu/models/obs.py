@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -91,7 +92,10 @@ def make_observation_mats(
     f = None
     if obsvals is not None:
         y = jnp.asarray(np.asarray(obsvals, dtype=float), dtype=dtype)
-        f = jnp.tensordot(B, sigma_inv * y, axes=((d,), (0,)))
+        f = jnp.tensordot(
+            B, sigma_inv * y, axes=((d,), (0,)),
+            precision=jax.lax.Precision.HIGHEST,
+        )
     return B, sigma_inv, f
 
 
@@ -100,7 +104,7 @@ def make_posterior_operator(base, sigma2, coords, radii, obsvals=None):
 
     Ball-average columns are localized, so the returned operator
     carries the sparse patch view (operators.lrc.with_patches) that
-    keeps the posterior chain's rank-k products off the HBM hot path."""
+    keeps the posterior chain's rank-k products to k small windows."""
     from parmgmc_tpu.operators.lrc import with_patches
 
     B, sigma_inv, f = make_observation_mats(

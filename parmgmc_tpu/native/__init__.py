@@ -107,7 +107,7 @@ def ref_sor_bench(n: int, nsweeps: int = 8, kappa2: float = 1.0,
 
     Returns (n_dof, sec_per_sweep, sec_per_noise_fill) or None if no
     toolchain is available.  Used to anchor bench.py's vs_baseline in a
-    measured number (BENCH_NOTES.md)."""
+    measured number (BASELINE.md)."""
     if _sor_lib() is None:
         return None
     hinv2 = float((n + 1) ** 2)  # unit-domain FD scaling

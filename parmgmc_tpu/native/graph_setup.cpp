@@ -2,7 +2,7 @@
 //
 // The reference does its sweep/hierarchy setup in C inside PETSc (JP
 // colouring MATCOLORINGJP, mc_sor.c:383-395; GAMG aggregation).  The
-// TPU compute path needs none of that at run time, but building the
+// device compute path needs none of that at run time, but building the
 // colour-blocked ELL operators and aggregation hierarchies for meshes
 // with millions of nodes is O(n) pointer-chasing that is slow in
 // Python — these routines are the native equivalents, exposed through

@@ -1,6 +1,6 @@
 // Faithful single-core re-timing of the reference's hot loop, used to
 // anchor bench.py's vs_baseline in a measurement (the reference publishes
-// no numbers; see BENCH_NOTES.md).
+// no numbers; see BASELINE.md).
 //
 // Reproduces the data movement and arithmetic of the reference's
 // sequential multicolor SOR kernel (/root/reference/src/mc_sor.c:241-296):

@@ -1,6 +1,6 @@
 """Algebraic (smoothed-aggregation) multigrid hierarchy for graph operators.
 
-TPU-native analogue of PETSc ``PCGAMG`` as the reference configures it
+JAX analogue of PETSc ``PCGAMG`` as the reference configures it
 for MGMC (``src/pc_gamgmc.c:275-356``, ``examples/benchmark/benchmarkrc``:
 smoothed aggregation, Galerkin coarse operators).  Setup runs on the
 host with scipy.sparse (like GAMG's setup runs on CPUs); the per-level

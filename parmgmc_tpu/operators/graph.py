@@ -1,8 +1,8 @@
 """Sparse graph operators for unstructured meshes (ELL layout).
 
-TPU-native replacement for the reference's ``MATAIJ`` CSR operators on
-unstructured (DMPlex/Gmsh) meshes.  CSR row loops serialize on TPU, so
-rows are stored in fixed-width ELL form — ``vals (n, w)``,
+JAX replacement for the reference's ``MATAIJ`` CSR operators on
+unstructured (DMPlex/Gmsh) meshes.  CSR row loops serialize on an
+accelerator, so rows are stored in fixed-width ELL form — ``vals (n, w)``,
 ``cols (n, w)`` — and a matvec is a batch of row gathers + a row
 reduction.
 
@@ -13,21 +13,19 @@ sub-sweep is a gather over a static row slice + a dynamic-update-slice,
 with no masks and no scatter.  The greedy distance-1 colouring plays the
 role of PETSc's MATCOLORINGJP (mc_sor.c:383-395).
 
-Two TPU-specific layout decisions (round 4, measured on a v5e —
-``examples/probe_mesh_multichain.py``):
+Two layout decisions:
 
 * **Trailing chain axis.**  Every linear-algebra entry point accepts
   ``x`` of shape ``(n,)`` or ``(n, C)`` — C vmapped-style independent
   chains stored chain-major.  A gather of ELL neighbours then moves
-  contiguous C-wide rows instead of scalars, which runs ~2.6x faster
-  than the batch-leading ``vmap`` layout (335 vs 128 GB/s effective).
+  contiguous C-wide rows instead of scalars.
 * **Degree-sorted colour blocks + per-k prefix gathers.**  Rows within
   a colour are sorted by descending off-diagonal degree at setup, and
   the static per-colour prefix counts (``color_counts``) let column k
   of the ELL array gather only the rows that actually HAVE a k-th
   neighbour.  Bytes moved per sweep drop from ``n*w_max*C`` to
   ``~nnz*C`` (3.2x on the wrench mesh, whose max degree is 41 against
-  a mean of 12.7).  Combined: 2.71 ms vs 11.8 ms per 256-chain sweep.
+  a mean of 12.7).
 
 The operator presents the same protocol as StencilOperator with
 ``grid_shape == (n,)`` — every sampler (Gibbs, Cholesky, MGMC, LRC,

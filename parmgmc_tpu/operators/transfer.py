@@ -10,7 +10,7 @@ Two implementations of the same protocol (``prolong(xc) -> xf``,
   algebraic (smoothed-aggregation) hierarchy on unstructured meshes —
   the analogue of PETSc GAMG's prolongators consumed by the reference's
   MGMC (pc_gamgmc.c / `-pc_mg_galerkin both`).  Both P and P^T are
-  stored as gathers so neither direction needs a scatter on TPU.
+  stored as gathers so neither direction needs a scatter.
 """
 
 from __future__ import annotations
@@ -53,8 +53,7 @@ def _agg_down_1d(f, axis):
     f = jnp.moveaxis(f, axis, -1)
     nf = f.shape[-1]
     m = nf // 2
-    # explicit pair add == .sum(-1) bitwise; measured faster on TPU
-    # (examples/probe_pairsum.py)
+    # explicit pair add == .sum(-1) bitwise
     fp = f[..., : 2 * m].reshape(f.shape[:-1] + (m, 2))
     pair = fp[..., 0] + fp[..., 1]
     if nf % 2:
@@ -75,11 +74,6 @@ class AggregateTransfer:
 
     fine_shape: tuple
 
-    # NOTE: the per-axis moveaxis chain below looks clumsy but measures
-    # ~10x faster on TPU than the "one broadcast + interleaving reshape"
-    # formulation — the interleaved minor dims fight the (8,128) tiled
-    # layout and XLA lowers them to lane shuffles.
-
     def prolong(self, xc):
         y = xc
         for axis, nf in enumerate(self.fine_shape):
@@ -99,8 +93,7 @@ class SparseTransfer:
 
     Applies accept a trailing chain axis (``(n, C)`` chain-major
     multichain layout) and run as per-k ROW gathers — each gathered
-    element is a contiguous C-wide row, which measures ~2.6x faster on
-    TPU than one flat (n, w, C) gather (probe_mesh_multichain)."""
+    element is a contiguous C-wide row."""
 
     p_vals: jax.Array  # (nf, w)
     p_cols: jax.Array  # (nf, w) int32 into coarse

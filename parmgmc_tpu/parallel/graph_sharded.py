@@ -3,7 +3,7 @@
 The reference row-partitions mesh matrices over MPI ranks and sweeps
 with per-colour ghost scatters (``/root/reference/src/mc_sor.c:298-381``
 builds per-colour index sets + VecScatters; ``examples/ex13.py:80-87``
-weak-scales the wrench to 512 ranks).  This is the TPU-native
+weak-scales the wrench to 512 ranks).  This is the JAX
 equivalent, built on ``shard_map`` over a device mesh axis:
 
 * **Partition**: owned rows are split by a balanced cut along the
@@ -22,8 +22,8 @@ equivalent, built on ``shard_map`` over a device mesh axis:
   REPLICATED (mesh coarse levels shrink ~25x per level); restriction
   is a per-shard partial P^T over owned rows + one ``psum``, and
   prolongation is a purely local row gather from the replicated coarse
-  vector — the graph analogue of the structured tail's
-  replicate-below-threshold strategy (parallel/fused.py).
+  vector — the graph analogue of the structured hierarchy's
+  replicate-below-threshold strategy (parallel/mesh.py).
 
 Exactness: within a colour, multicolour Gauss-Seidel updates are
 independent, and ghosts are refreshed at every colour boundary, so the
@@ -62,6 +62,9 @@ __all__ = [
     "make_sharded_graph_gibbs_step",
     "make_sharded_graph_mgmc_step",
 ]
+
+# f32 contractions run in TF32 on tensor-core GPUs unless asked not to.
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @pytree_dataclass(
@@ -558,10 +561,13 @@ def make_sharded_graph_mgmc_step(
             return ax
         B_l = lrc_l[0][0]  # (L, k)
         bty = jax.lax.psum(
-            jnp.tensordot(B_l, x_loc, axes=((0,), (0,))), axis_name
+            jnp.tensordot(B_l, x_loc, axes=((0,), (0,)), precision=HIGHEST),
+            axis_name,
         )  # (k, [C])
         w = _bc(lrc_l[3], bty) * bty  # Sigma^{-1} B^T x
-        return ax + jnp.tensordot(B_l, w, axes=((1,), (0,)))
+        return ax + jnp.tensordot(
+            B_l, w, axes=((1,), (0,)), precision=HIGHEST
+        )
 
     def gibbs_step_local(spec_l, nsc_l, lrc_l, kl, ksh, x_loc, rhs, ctr):
         """One level-0 Gibbs step (matches GibbsSampler.step_with_noise:
@@ -589,15 +595,22 @@ def make_sharded_graph_mgmc_step(
                 else:
                     eta2 = jnp.zeros((k_lr,) + batch, x_loc.dtype)
                 w = _bc(lrc_l[4], eta2) * eta2  # sqrt(Sigma^{-1}) eta2
-                btilde = btilde + jnp.tensordot(B_l, w, axes=((1,), (0,)))
+                btilde = btilde + jnp.tensordot(
+                    B_l, w, axes=((1,), (0,)), precision=HIGHEST
+                )
             x_loc = sharded_sor_sweep(spec_l, btilde, x_loc, om, axis_name, d)
             if is_lrc:
                 B_l = lrc_l[0][0]
                 Bb_l = lrc_l[1][0] if d == "forward" else lrc_l[2][0]
                 bty = jax.lax.psum(
-                    jnp.tensordot(B_l, x_loc, axes=((0,), (0,))), axis_name
+                    jnp.tensordot(
+                        B_l, x_loc, axes=((0,), (0,)), precision=HIGHEST
+                    ),
+                    axis_name,
                 )
-                x_loc = x_loc - jnp.tensordot(Bb_l, bty, axes=((1,), (0,)))
+                x_loc = x_loc - jnp.tensordot(
+                    Bb_l, bty, axes=((1,), (0,)), precision=HIGHEST
+                )
         return x_loc
 
     def coarse_cycle(rc, key):

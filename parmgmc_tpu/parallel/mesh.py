@@ -1,6 +1,6 @@
 """Device-mesh sharding of samplers and chain state.
 
-TPU-native replacement for the reference's MPI domain decomposition
+Replacement for the reference's MPI domain decomposition
 (row-partitioned MPIAIJ + per-color VecScatter ghost exchange,
 ``/root/reference/src/mc_sor.c:152-214,298-381``): grid-shaped arrays are
 sharded block-wise over a ``jax.sharding.Mesh``; the stencil shifts inside
@@ -93,16 +93,6 @@ def shard_array(x, mesh: Mesh, grid_specs):
     return jax.device_put(x, NamedSharding(mesh, spec))
 
 
-def _force_lax_impl(sampler):
-    """Pallas fused kernels assume whole-array semantics and do not
-    partition under GSPMD; sharded samplers must use the lax sweeps
-    (whose stencil shifts become collective-permute halo exchanges).
-    (Alias of :func:`parmgmc_tpu.samplers.registry.lax_variant`.)"""
-    from parmgmc_tpu.samplers.registry import lax_variant
-
-    return lax_variant(sampler)
-
-
 def shard_sampler(sampler, mesh: Mesh, min_local: int = 4, grid_axes=None):
     """Device-put every array leaf of the sampler with its mesh sharding.
 
@@ -111,7 +101,6 @@ def shard_sampler(sampler, mesh: Mesh, min_local: int = 4, grid_axes=None):
     names the mesh axis for each grid dimension (None = unsharded dim),
     letting other mesh axes carry chain/batch parallelism.
     """
-    sampler = _force_lax_impl(sampler)
     grid_specs = level_specs(
         _collect_grid_shapes(sampler), mesh, min_local, grid_axes
     )

@@ -7,16 +7,14 @@ pc_chols.c``): draw i.i.d. exact samples of N(A^{-1}b, A^{-1}) via
 
 (pc_chols.c:262-291).  The reference factors sparsely with MKL
 (C)Pardiso plus a dense LAPACK fast path for small blocks
-(pc_chols.c:174-194); on TPU the coarse grids this serves are small
+(pc_chols.c:174-194); on the device the coarse grids this serves are small
 (<= a few thousand DOFs), so a dense ``lax.linalg.cholesky`` is both
 simpler and faster.
 
 The per-sample map is applied with a CACHED EXPLICIT INVERSE factor
 ``Li = L^{-1}`` (computed once at ``create``): a triangular solve is a
-latency-bound sequential recurrence on the MXU (measured 0.124 ms for
-the two 512-DOF solves of one coarse sample — the single largest item
-in the 256^3 MGMC step's tail), while ``y = Li^T (Li b + eta)`` is two
-dense matvecs that the MXU retires in ~10 us.  Same linear map, so
+latency-bound sequential recurrence, while ``y = Li^T (Li b + eta)`` is
+two dense matvecs.  Same linear map, so
 exactness (N(A^{-1}b, A^{-1})) is preserved to rounding; coarse
 operators are strongly diagonally dominant (aggregation multiplies
 kappa^2 by 2^d per level), so the inversion is well-conditioned.
@@ -42,11 +40,15 @@ from parmgmc_tpu._pytree import pytree_dataclass
 
 __all__ = ["CholeskySampler", "SparseCholeskySampler", "exact_sampler"]
 
+# f32 matmuls run in TF32 on tensor-core GPUs unless asked not to; an
+# inexact coarse draw wrecks MGMC mixing (docs/samplers.md).
+HIGHEST = jax.lax.Precision.HIGHEST
+
 
 @pytree_dataclass(meta=("grid_shape",))
 class CholeskySampler:
     L: jax.Array  # (n, n) lower Cholesky factor of the (possibly LRC) operator
-    Li: jax.Array  # (n, n) L^{-1}: per-sample solves become MXU matvecs
+    Li: jax.Array  # (n, n) L^{-1}: per-sample solves become matvecs
     grid_shape: tuple
 
     @staticmethod
@@ -62,7 +64,11 @@ class CholeskySampler:
         # accuracy on ill-conditioned operators — the diagonal-dominance
         # argument holds for MGMC coarse levels, not for arbitrary user
         # operators.  Otherwise fall back to backward-stable solves.
-        err = float(jnp.abs(Li @ L - jnp.eye(n, dtype=L.dtype)).max())
+        err = float(
+            jnp.abs(
+                jnp.matmul(Li, L, precision=HIGHEST) - jnp.eye(n, dtype=L.dtype)
+            ).max()
+        )
         if err > 1000 * float(jnp.finfo(L.dtype).eps):
             Li = None
         return CholeskySampler(L=L, Li=Li, grid_shape=op.grid_shape)
@@ -85,12 +91,15 @@ class CholeskySampler:
         return b.reshape((self.n,) + batch)
 
     def prepare(self, b):
-        """Cache v = L^{-1} b (reused across every sample of the chain)."""
+        """Cache v = L^{-1} b (reused across every sample of the chain);
+        ``b=None`` is a zero RHS."""
+        if b is None:
+            b = jnp.zeros(self.grid_shape, self.dtype)
         if self.Li is None:
             return jax.scipy.linalg.solve_triangular(
                 self.L, self._flat(b), lower=True
             )
-        return self.Li @ self._flat(b)
+        return jnp.matmul(self.Li, self._flat(b), precision=HIGHEST)
 
     def step_with_noise(self, x, b, noises, aux=None):
         del x  # exact sampler: iterates are i.i.d.
@@ -99,7 +108,7 @@ class CholeskySampler:
         if self.Li is None:
             y = jax.scipy.linalg.solve_triangular(self.L.T, w, lower=False)
         else:
-            y = self.Li.T @ w
+            y = jnp.matmul(self.Li.T, w, precision=HIGHEST)
         return y.reshape(self.grid_shape + w.shape[1:])
 
     def step(self, key, x, b, aux=None):
@@ -119,14 +128,14 @@ class SparseCholeskySampler:
     wrench mesh as the ex13 baseline comparator (``examples/ex13.py:
     29-30``).
 
-    TPU-design stance: an exact sparse factorization and its triangular
+    Design stance: an exact sparse factorization and its triangular
     solves are sequential, latency-bound recurrences — the wrong shape
-    for the MXU/VPU, and the reference runs them on CPU too.  So this
+    for an accelerator, and the reference runs them on CPU too.  So this
     sampler lives on the HOST (scipy SuperLU in symmetric mode: with
     ``diag_pivot_thresh=0`` + ``SymmetricMode`` on an SPD matrix the
     factorization is P A P^T = L D L^T with unit-lower L and D > 0 —
     verified against the operator at create time), while on-device
-    exact sampling remains the dense MXU :class:`CholeskySampler` (use
+    exact sampling remains the dense :class:`CholeskySampler` (use
     :func:`exact_sampler` for the reference's dense-threshold dispatch,
     ``-pc_cholsampler_dense_threshold``).
 
@@ -285,7 +294,7 @@ class SparseCholeskySampler:
 
 def exact_sampler(op, dense_threshold: int = 20_000):
     """Reference-style dispatch (``-pc_cholsampler_dense_threshold``):
-    dense MXU CholeskySampler below the threshold, host-side sparse
+    dense CholeskySampler below the threshold, host-side sparse
     LDL^T above it (pc_chols.c:174-194 picks LAPACK vs Pardiso the same
     way)."""
     import math

@@ -10,7 +10,7 @@ as a state-carrying chain
 (pc_gamgmc.c:242-259, including the zero-guess shortcut and the
 "don't re-apply the cycle to raw b" bias note at :248-253).
 
-Differences from the reference, by TPU-design choice:
+Differences from the reference, by design choice:
 
 * The hierarchy is geometric-on-structured-grids with the Galerkin
   triple product computed in closed form as a strided convolution
@@ -32,7 +32,6 @@ import math
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from parmgmc_tpu._pytree import bcast_trailing as _bc
 from parmgmc_tpu._pytree import pytree_dataclass
@@ -99,7 +98,7 @@ def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="linear"):
             # each coarse face carries 2^(d-1) fine edges).  Equal to the
             # comb-probed P^T A P exactly (tests), but O(1) setup — the
             # probe path materialises 4^d comb responses plus gather
-            # indices, which OOMs 16 GB of HBM at the 384^3 level.
+            # indices, gigabytes at the 384^3 level.
             d = base.ndim
             k2, h2 = float(fd[0]), float(fd[1])
             from parmgmc_tpu.operators.stencil import FDStencilOperator
@@ -135,245 +134,6 @@ def build_hierarchy(op, n_levels=None, coarsest_size=128, coarsening="linear"):
     return ops, tuple(transfers)
 
 
-def compute_lrc_aux(ops, transfers, smoothers):
-    """Rank-k residual-correction matrices for the fused LRC chain
-    path (one-time setup), or None when the configuration cannot use
-    them:
-
-        RABb = restrict(A_base @ Bb)   (coarse grid, k)
-        H    = B^T Bb                  (k, k)
-
-    where Bb is the sweep-direction Woodbury factor the level-0
-    smoother already carries (mc_sor.c:456-544 analogue).  Shared by
-    MGMCSampler.create and the registry's mgmc builder."""
-    s0 = smoothers[0] if smoothers else None
-    if not (
-        s0 is not None
-        and getattr(s0, "is_lrc", False)
-        and getattr(s0, "impl", "lax") == "fused_fd"
-        and s0.sweep in ("forward", "backward")
-        and len(transfers) >= 1
-    ):
-        return None
-    base0 = ops[0].base
-    ndim = base0.ndim
-    Bb = s0.Bb_fw if s0.sweep == "forward" else s0.Bb_bw
-    # one column at a time: the vmapped form materialised two extra
-    # (k, *grid) stacks (2 x 2.7 GB at 512^3 k=5) and OOMed setup
-    RABb = jnp.stack(
-        [
-            transfers[0].restrict(base0.apply(Bb[..., j]))
-            for j in range(Bb.shape[-1])
-        ],
-        axis=ndim,
-    )
-    axes = tuple(range(ndim))
-    H = jnp.tensordot(ops[0].B, Bb, axes=(axes, axes))
-    # column sums of Bb: the deferred chain recovers the Woodbury
-    # correction's contribution to each sample's global sum from these
-    return {"RABb": RABb, "H": H, "Bb_colsum": jnp.sum(Bb, axis=axes)}
-
-
-def attach_chain_b_response(smp, max_fill: float = 0.5):
-    """Probe the level-0 chain kernel's b-propagator on the observation
-    columns and attach the resulting rank-k window factors to lrc_aux
-    (round 5, VERDICT r4 #4).
-
-    The chain step is AFFINE in its RHS stream, so the posterior's
-    per-step ``b_eff = b + B wv`` never needs materialising: run the
-    kernel on the STATIC b and add the low-rank response afterwards,
-
-        xpy(b + B wv) = xpy(b) + Mb wv,   rc(b + B wv) = rc(b) + RB wv,
-
-    with ``Mb[:, j]`` / ``RB[:, j]`` the kernel's own (state, restricted
-    -residual) responses to column B_j — measured HERE by calling
-    :meth:`MGMCSampler._fused_chain_down` twice under the SAME key
-    (x = 0, b = 0 vs b = s_j B_j) and subtracting: the stochastic terms
-    are identical in both runs, so outside column j's influence region
-    the outputs agree BITWISE and the response has exact compact
-    support (which makes it window-extractable), while inside it the
-    s_j = 1e6 / max|B_j| scaling makes the fp cancellation error
-    negligible relative to the response.  Probing the kernel itself
-    (rather than modelling M^{-1}) keeps the factors exact for
-    whatever sweep the routed kernel actually performs.
-
-    Eliminates the posterior chain's full-grid b_eff write+read (the
-    largest term of the 1.94 ms/step posterior tax at 256^3 — measured
-    0.956 ms stand-alone, examples/profile_cycle.py --posterior) and
-    lets b = None posterior runs drop the kernel's b stream entirely.
-    Returns ``smp`` unchanged when the configuration is not
-    kernel-LRC-eligible or the responses are not localized enough.
-    """
-    import dataclasses
-
-    from parmgmc_tpu.operators.lrc import LRCOperator
-
-    if (
-        smp.lrc_aux is None
-        or "Mb_pv" in smp.lrc_aux
-        or not isinstance(smp.ops[0], LRCOperator)
-        or not smp._lrc_chain_eligible()
-        or smp.ops[0].patch_vals is None
-    ):
-        return smp
-    op0 = smp.ops[0]
-    gshape = tuple(int(s) for s in smp.grid_shape)
-    d = len(gshape)
-    dtype = op0.dtype
-    key = jax.random.PRNGKey(0)
-    x0 = jnp.zeros(gshape, dtype)
-    try:
-        xpy0, rc0, _ = smp._fused_chain_down(x0, x0, key)
-    except Exception:
-        # the real chain kernels are TPU-only: a CPU-hosted create (the
-        # sharded tests / dryrun build fused-eligible samplers off-chip)
-        # keeps the legacy b_eff route instead of probing
-        return smp
-    cshape = tuple(int(s) for s in rc0.shape)
-
-    def bbox(a):
-        # tight nonzero bounding box; None when a == 0 everywhere
-        nz = a != 0
-        out = []
-        for ax in range(a.ndim):
-            axes = tuple(x for x in range(a.ndim) if x != ax)
-            proj = jnp.any(nz, axis=axes)
-            if not bool(jnp.any(proj)):
-                return None
-            lo = int(jnp.argmax(proj))
-            hi = a.shape[ax] - int(jnp.argmax(proj[::-1]))
-            out.append((lo, hi))
-        return out
-
-    fine, coarse = [], []  # (np window, lo) per column
-    BtMb = np.zeros((op0.k, op0.k), np.float64)
-    colsum = np.zeros((op0.k,), np.float64)
-    for j in range(op0.k):
-        col = op0.B[..., j]
-        s_j = 1e6 / float(jnp.max(jnp.abs(col)))
-        xpyj, rcj, _ = smp._fused_chain_down(x0, col * s_j, key)
-        dm = (xpyj - xpy0) / s_j
-        dr = (rcj - rc0) / s_j
-        bm, br = bbox(dm), bbox(dr)
-        if bm is None or br is None:
-            return smp
-        BtMb[:, j] = np.asarray(op0.bt_apply(dm), np.float64)
-        colsum[j] = float(jnp.sum(dm))
-        fine.append(
-            (
-                np.asarray(
-                    dm[tuple(slice(lo, hi) for lo, hi in bm)]
-                ),
-                [lo for lo, _ in bm],
-            )
-        )
-        coarse.append(
-            (
-                np.asarray(
-                    dr[tuple(slice(lo, hi) for lo, hi in br)]
-                ),
-                [lo for lo, _ in br],
-            )
-        )
-
-    def pack(wins, shape, fill):
-        ext = [max(w.shape[ax] for w, _ in wins) for ax in range(d)]
-        if np.prod(ext) * len(wins) > fill * np.prod(shape):
-            return None
-        vals = np.zeros((len(wins), *ext), wins[0][0].dtype)
-        starts = np.zeros((len(wins), d), np.int32)
-        for j, (w, los) in enumerate(wins):
-            st = [
-                min(los[ax], shape[ax] - ext[ax]) for ax in range(d)
-            ]
-            off = tuple(
-                slice(los[ax] - st[ax], los[ax] - st[ax] + w.shape[ax])
-                for ax in range(d)
-            )
-            vals[(j, *off)] = w
-            starts[j] = st
-        return jnp.asarray(vals), jnp.asarray(starts)
-
-    # the fine windows are the perf-critical ones (full-grid passes
-    # otherwise); coarse windows are 8x smaller than the fine grid even
-    # when they cover their whole level, so always accept them
-    pf, pc = pack(fine, gshape, max_fill), pack(coarse, cshape, d + 8.0)
-    if pf is None or pc is None:
-        return smp
-    aux = dict(smp.lrc_aux)
-    aux.update(
-        {
-            "Mb_pv": pf[0],
-            "Mb_ps": pf[1],
-            "RB_pv": pc[0],
-            "RB_ps": pc[1],
-            "BtMb": jnp.asarray(BtMb, dtype),
-            "Mb_colsum": jnp.asarray(colsum, dtype),
-        }
-    )
-
-    # -- per-column UNION-BOX factor packs.  Each scan-body op costs
-    # ~0.07-0.1 ms of fixed launch overhead on this chip and BATCHED
-    # index gathers/scatters are 30x slower (probe_patch_overhead +
-    # bench A/B, round 5) — so the winning layout keeps per-window
-    # dynamic slices but aligns every factor SET on the SAME per-column
-    # window: one slice + one update then applies ALL sets
-    # (operators.lrc.fused_patch_apply_add).  Runtime weights:
-    # coarse (CW) [c, wv, -cc] over [restrict(A Bb), rc-response, B_c];
-    # fine (FW) [wv, -c] over [Mb, Bb].
-    def union_pack(sets, shape):
-        # sets: list of (vals (k,*box_i), starts (k,d)) — build
-        # (m, k, *ext) values on per-column union windows (zero-pad is
-        # exact: every factor has exact compact support)
-        sets = [(np.asarray(v), np.asarray(s_)) for v, s_ in sets]
-        k = sets[0][0].shape[0]
-        los = np.zeros((k, d), np.int64)
-        his = np.zeros((k, d), np.int64)
-        for j in range(k):
-            for a in range(d):
-                los[j, a] = min(int(s_[j, a]) for _, s_ in sets)
-                his[j, a] = max(
-                    int(s_[j, a]) + v.shape[1 + a] for v, s_ in sets
-                )
-        ext = [int((his[:, a] - los[:, a]).max()) for a in range(d)]
-        vals = np.zeros((len(sets), k, *ext), sets[0][0].dtype)
-        starts = np.zeros((k, d), np.int32)
-        for j in range(k):
-            st = [
-                min(int(los[j, a]), shape[a] - ext[a]) for a in range(d)
-            ]
-            starts[j] = st
-            for i, (v, s_) in enumerate(sets):
-                off = tuple(
-                    slice(int(s_[j, a]) - st[a],
-                          int(s_[j, a]) - st[a] + v.shape[1 + a])
-                    for a in range(d)
-                )
-                vals[(i, j, *off)] = v[j]
-        return jnp.asarray(vals), jnp.asarray(starts)
-
-    from parmgmc_tpu.operators.lrc import column_patches
-
-    opc = smp.ops[1]
-    rabb_p = column_patches(aux["RABb"], max_fill=d + 8.0)
-    s0 = smp.smoothers[0]
-    bb_pv, bb_ps = (
-        (s0.Bb_fw_pv, s0.Bb_fw_ps)
-        if s0.sweep == "forward"
-        else (s0.Bb_bw_pv, s0.Bb_bw_ps)
-    )
-    if rabb_p is not None and opc.patch_vals is not None:
-        aux["CW_pv"], aux["CW_ps"] = union_pack(
-            [rabb_p, (pc[0], pc[1]), (opc.patch_vals, opc.patch_starts)],
-            cshape,
-        )
-    if bb_pv is not None:
-        aux["FW_pv"], aux["FW_ps"] = union_pack(
-            [(pf[0], pf[1]), (bb_pv, bb_ps)], gshape
-        )
-    return dataclasses.replace(smp, lrc_aux=aux)
-
-
 @pytree_dataclass(meta=("n_pre", "n_post", "n_levels", "n_coarse", "gamma"))
 class MGMCSampler:
     """Stochastic V/W(n_pre, n_post)-cycle chain sampler for N(A^{-1}b, A^{-1}).
@@ -392,10 +152,6 @@ class MGMCSampler:
     n_levels: int
     n_coarse: int = 1  # iterations of the coarse sampler per cycle
     gamma: int = 1  # cycle index: 1 = V, 2 = W
-    # Precomputed rank-k correction matrices that keep the level-0 chain
-    # kernel on the LRC (posterior) path — see _lrc_chain_step.  None for
-    # plain-prior samplers.  {"RABb": (coarse,k), "H": (k,k)}
-    lrc_aux: object = None
 
     @staticmethod
     def create(
@@ -408,7 +164,6 @@ class MGMCSampler:
         n_post: int = 1,
         coarse_sampler=None,
         n_coarse: int = 1,
-        impl: str = "auto",
         coarsening: str = "linear",
         gamma: int = 1,
     ) -> "MGMCSampler":
@@ -419,13 +174,12 @@ class MGMCSampler:
             coarsening=coarsening,
         )
         smoothers = tuple(
-            GibbsSampler.create(o, omega=omega, sweep=sweep, impl=impl)
+            GibbsSampler.create(o, omega=omega, sweep=sweep)
             for o in ops[:-1]
         )
         if coarse_sampler is None:
             coarse_sampler = CholeskySampler.create(ops[-1])
-        lrc_aux = compute_lrc_aux(ops, transfers, smoothers)
-        smp = MGMCSampler(
+        return MGMCSampler(
             ops=tuple(ops),
             transfers=transfers,
             smoothers=smoothers,
@@ -435,9 +189,7 @@ class MGMCSampler:
             n_levels=len(ops),
             n_coarse=n_coarse,
             gamma=gamma,
-            lrc_aux=lrc_aux,
         )
-        return attach_chain_b_response(smp)
 
     # -- properties ---------------------------------------------------------
     @property
@@ -507,411 +259,13 @@ class MGMCSampler:
         r = _bc(b, x) - self.fine_op.apply(x)
         return x + self._cycle(0, r, noises)
 
-    # -- keyed cycle: lets fused-kernel smoothers generate noise on chip ----
-    def _down_fused_eligible(self, l: int, allow_lrc: bool = False) -> bool:
-        """Can level l's whole down-phase (noise + from-zero pre-smooth +
-        residual + restriction) run as ONE Pallas kernel?  Requires the
-        flagship V(1,0) shape: a single forward/backward pre-sweep, no
-        post-sweep, FD-form smoother, plain-aggregation transfer.
-
-        ``allow_lrc``: the kernel itself only knows the BASE stencil;
-        level-0 LRC samplers route through :meth:`_lrc_chain_step`, which
-        feeds the low-rank terms through the kernel's b stream and
-        corrects the restricted residual with precomputed rank-k
-        matrices — that caller passes allow_lrc=True."""
-        if self.n_pre != 1 or self.n_post != 0 or self.gamma != 1:
-            return False
-        if l >= self.n_levels - 1:
-            return False
-        s = self.smoothers[l]
-        if getattr(s, "impl", "lax") != "fused_fd" or (
-            s.is_lrc and not allow_lrc
-        ):
-            return False
-        if s.sweep not in ("forward", "backward"):
-            return False
-        if not isinstance(self.transfers[l], AggregateTransfer):
-            return False
-        from parmgmc_tpu.kernels.rb_gibbs import _PLANE_LIMIT
-
-        gshape = self.ops[l].grid_shape
-        if gshape[1] * gshape[2] > _PLANE_LIMIT:
-            # beyond the whole-plane VMEM window only the CHAIN kernel
-            # has a 2D-tiled variant (fused_chain_down_2d) — it needs
-            # N0 % 4 (step() routes l==0 through it only then),
-            # N1 % 8 and a feasible (T0+8)-halo tile.  Deeper levels'
-            # planes shrink 4x per level and re-enter the 1D kernels.
-            from parmgmc_tpu.kernels.mg_sweep import chain_down_2d_supported
-
-            if l != 0 or gshape[0] % 4 or not chain_down_2d_supported(gshape):
-                return False
-        return all(d % 2 == 0 for d in gshape)
-
-    def _fused_down(self, l: int, bl, key):
-        """(y, rc, key): fused level-l down-phase (kernels.mg_sweep)."""
-        from parmgmc_tpu.kernels.mg_sweep import fused_zero_gibbs_restrict_fd
-
-        s = self.smoothers[l]
-        key, k1, k2 = jax.random.split(key, 3)
-        seed = jax.random.randint(k1, (), 0, 2**31 - 1, dtype=jnp.int32)
-        step = jax.random.randint(k2, (), 0, 2**31 - 1, dtype=jnp.int32)
-        y, rq = fused_zero_gibbs_restrict_fd(
-            bl,
-            s._coeff6(),
-            s.fd_params[0],
-            s.fd_params[1],
-            s.omega.astype(jnp.float32),
-            seed,
-            step,
-            sweep=s.sweep,
-        )
-        n0, n1, n2 = bl.shape
-        # [...,0] + [...,1] instead of .sum(-1): same single add per
-        # element (bit-identical) but measured 3.25 -> 2.49 ms at 768^3
-        # (examples/probe_pairsum.py) — XLA lowers the explicit add to a
-        # cheaper strided-pair read than the size-2 reduction.
-        rp = rq.reshape(n0 // 2, n1 // 2, n2 // 2, 2)
-        rc = rp[..., 0] + rp[..., 1]
-        return y, rc, key
-
-    def _chain_level0_2d(self) -> bool:
-        """Should level 0's chain kernel run the 2D-TILED variant?
-        Past ``_CHAIN_2D_MIN`` points/plane.  Routing 512^3
-        (whole-plane T=4) through the 2D tiles was measured and
-        REJECTED: the whole-plane kernel's block pipeline fetches every
-        HBM byte once (window amplification is VPU-side only), while
-        the 2D windows re-fetch halo bytes from HBM (DMA amp 1.69x) —
-        chain 11.57 -> 12.89 ms (BENCH_NOTES "512^3 per-stage
-        breakdown", 2026-08-18).  An early-crossover variant (route
-        2D from 384K points/plane, motivated by the whole-plane
-        auto-tile collapsing to T=2 at 640^2) was ALSO measured and
-        REJECTED 2026-08-20: the staged KERNEL alone is faster at
-        640^3 (22.5 vs ~25 ms) but the full cycle is slower (34.4 vs
-        30.2 ms — the 2D carry/glue passes eat the win).  step and
-        step_deferred must agree on this routing (the two kernels key
-        their on-chip noise differently), so it depends only on the
-        grid shape."""
-        from parmgmc_tpu.kernels.mg_sweep import chain_down_2d_supported
-        from parmgmc_tpu.kernels.rb_gibbs import _PLANE_LIMIT
-
-        gs = self.grid_shape
-        if len(gs) != 3 or gs[0] % 4 or not chain_down_2d_supported(gs):
-            return False
-        return gs[1] * gs[2] > _PLANE_LIMIT
-
-    def _fused_chain_down(
-        self, x, b, key, z=None, with_xsum=False, with_zsum=False
-    ):
-        """(xpy, rc, key, *extras): fused chain down-phase at level 0.
-
-        One kernel streams the chain state x and RHS b and produces
-        xpy = x + y0 (pre-smooth of r = b - A x from zero) plus the
-        restricted residual — the residual program and the final
-        three-array add both disappear (kernels.mg_sweep _kernel_chain).
-        ``z`` is the deferred coarse correction in the layout
-        :meth:`deferred_layout` names (zx2 for the whole-plane kernel,
-        zf for the 2D-tiled one); extras = the kernel's optional
-        xsum/zsum outputs.  This is the ONLY place the chain kernel's
-        key consumption is derived — step and step_deferred both route
-        through it, which is what keeps their sample sequences
-        bit-identical.
-        """
-        from parmgmc_tpu.kernels.mg_sweep import (
-            fused_chain_down_2d,
-            fused_chain_down_2d_staged,
-            fused_chain_down_fd,
-        )
-
-        s = self.smoothers[0]
-        key, k1, k2 = jax.random.split(key, 3)
-        seed = jax.random.randint(k1, (), 0, 2**31 - 1, dtype=jnp.int32)
-        step = jax.random.randint(k2, (), 0, 2**31 - 1, dtype=jnp.int32)
-        common = dict(sweep=s.sweep, with_xsum=with_xsum, with_zsum=with_zsum)
-        if self._chain_level0_2d():
-            if z is not None and self.deferred_layout() == "zx2":
-                # staged kernel, zx2 carry (half the z HBM bytes; the
-                # deferred_layout probe guarantees tile feasibility)
-                out = fused_chain_down_2d_staged(
-                    x,
-                    b,
-                    s._coeff6(),
-                    s.fd_params[0],
-                    s.fd_params[1],
-                    s.omega.astype(jnp.float32),
-                    seed,
-                    step,
-                    zx2=z,
-                    **common,
-                )
-            else:
-                out = fused_chain_down_2d(
-                    x,
-                    b,
-                    s._coeff6(),
-                    s.fd_params[0],
-                    s.fd_params[1],
-                    s.omega.astype(jnp.float32),
-                    seed,
-                    step,
-                    zf=z,
-                    **common,
-                )
-        else:
-            out = fused_chain_down_fd(
-                x,
-                b,
-                s._coeff6(),
-                s.fd_params[0],
-                s.fd_params[1],
-                s.omega.astype(jnp.float32),
-                seed,
-                step,
-                zx2=z,
-                **common,
-            )
-        xpy, rq = out[0], out[1]
-        n0, n1, n2 = x.shape
-        # explicit pair add: bit-identical to .sum(-1), ~0.75 ms faster
-        # at 768^3 (examples/probe_pairsum.py)
-        rp = rq.reshape(n0 // 2, n1 // 2, n2 // 2, 2)
-        rc = rp[..., 0] + rp[..., 1]
-        return (xpy, rc, key, *out[2:])
-
-    # -- fused LRC (posterior) chain step ----------------------------------
-    def _lrc_chain_eligible(self) -> bool:
-        """Can the level-0 chain kernel serve an LRC (posterior) fine
-        operator?  Same kernel requirements as the prior chain path plus
-        the precomputed rank-k correction matrices from create()."""
-        return (
-            bool(self.smoothers)
-            and getattr(self.smoothers[0], "is_lrc", False)
-            and self.lrc_aux is not None
-            and self._down_fused_eligible(0, allow_lrc=True)
-            and self.grid_shape[0] % 4 == 0
-        )
-
-    def _lrc_chain_step(self, sub, x, b):
-        """One posterior chain step with level 0 on the UNCHANGED fused
-        chain kernel (the reference's design point: the Woodbury
-        machinery bolts onto the hot sweep without touching it,
-        /root/reference/src/mc_sor.c:101-112).  All low-rank work is
-        rank-k tensordots in XLA:
-
-        1. The low-rank RHS noise and the low-rank part of the chain
-           residual ride the kernel's b stream:
-               b_eff = b + B (w - Sigma^{-1} B^T x),  w = sqrt(Sigma^{-1}) eta2
-           so the kernel's internal residual b_eff - A x equals the true
-           LRC residual plus the B w noise term.
-        2. The kernel's restricted residual is corrected for (a) the B w
-           noise it saw, (b) the Woodbury post-correction it didn't see,
-           and (c) the low-rank part of the post-smooth residual:
-               rc = rc_kernel + restrict(A Bb) c
-                    - B_c (w + Sigma^{-1}(c - H c))
-           with c = B^T y_raw, H = B^T Bb, and B_c = ops[1].B the
-           hierarchy's already-restricted columns (B_c = P^T B_f).
-        3. The state correction fuses into the up-phase add:
-               x' = xpy_raw - Bb c + P z1.
-
-        Exactness of the algebra is A/B-tested against the materialised
-        oracle (same kernel invocations, explicit LRC residual) in the
-        TPU selftest; distributional correctness against the dense
-        posterior in tests/ + selftest moments.
-
-        Round 5: when :func:`attach_chain_b_response` managed to probe
-        the kernel's own b-propagator (aux keys Mb_pv/RB_pv/BtMb), step
-        1's b_eff never materialises — the kernel runs on the STATIC b
-        and the low-rank RHS term enters as rank-k window corrections
-        afterwards (the kernel step is affine in b).  That removes the
-        full-grid b_eff write+read per step (~0.96 ms of the 1.94 ms
-        posterior tax at 256^3, profile_cycle --posterior) and lets
-        b=None posteriors skip the kernel b stream entirely.  The
-        legacy b_eff route remains for dense-B / unpatchable setups and
-        the sharded path."""
-        from parmgmc_tpu.operators.lrc import patch_apply_add
-
-        s = self.smoothers[0]
-        op0 = self.fine_op  # LRCOperator
-        ndim = s.base.ndim
-        axes = tuple(range(ndim))
-        sub, klr = jax.random.split(sub)
-        w = s.sqrt_sigma_inv * jax.random.normal(
-            klr, (op0.k,), x.dtype
-        )
-        btx = op0.bt_apply(x)
-        wv = w - op0.sigma_inv * btx
-        aux = self.lrc_aux
-        H = aux["H"]
-        RABb = aux["RABb"]
-        if "Mb_pv" in aux:
-            # kernel-probed b-response route (attach_chain_b_response):
-            # the kernel runs on the STATIC b (None stays None — no b
-            # stream at all for prior-mean posteriors) and the low-rank
-            # RHS term enters as precomputed rank-k window corrections:
-            #   xpy(b + B wv) = xpy(b) + Mb wv
-            #   rc (b + B wv) = rc (b) + RB wv
-            from parmgmc_tpu.operators.lrc import fused_patch_apply_add
-
-            xpy_k, rc_k, sub = self._fused_chain_down(x, b, sub)
-            c = (op0.bt_apply(xpy_k) - btx) + aux["BtMb"] @ wv
-            cc = w + op0.sigma_inv * (c - H @ c)
-            if "CW_pv" in aux:
-                # all three coarse factor sets: one slice+update/window
-                rc = fused_patch_apply_add(
-                    aux["CW_pv"],
-                    aux["CW_ps"],
-                    jnp.stack([c, wv, -cc]),
-                    rc_k,
-                )
-            else:
-                rc = patch_apply_add(
-                    aux["RB_pv"],
-                    aux["RB_ps"],
-                    wv,
-                    rc_k + jnp.tensordot(RABb, c, axes=((ndim,), (0,))),
-                )
-                rc = self.ops[1].b_apply_add(-cc, rc)
-            sub, sub2 = jax.random.split(sub)
-            z1 = self._cycle_keyed(1, rc, sub2)
-            if "FW_pv" in aux:
-                x_out = fused_patch_apply_add(
-                    aux["FW_pv"],
-                    aux["FW_ps"],
-                    jnp.stack([wv, -c]),
-                    xpy_k,
-                )
-            else:
-                x_out = patch_apply_add(
-                    aux["Mb_pv"], aux["Mb_ps"], wv, xpy_k
-                )
-                x_out = s._bb_apply_sub(s.sweep, x_out, c)
-            return x_out + self.transfers[0].prolong(z1)
-        if b is not None:
-            b_eff = op0.b_apply_add(wv, b)
-        else:
-            b_eff = op0.b_apply(wv)
-        xpy_raw, rc_raw, sub = self._fused_chain_down(x, b_eff, sub)
-        c = op0.bt_apply(xpy_raw) - btx  # = B^T y_raw
-        cc = w + op0.sigma_inv * (c - H @ c)
-        # -B_c cc via the coarse operator's (patch-aware) product
-        rc = self.ops[1].b_apply_add(
-            -cc, rc_raw + jnp.tensordot(RABb, c, axes=((ndim,), (0,)))
-        )
-        sub, sub2 = jax.random.split(sub)
-        z1 = self._cycle_keyed(1, rc, sub2)
-        return s._bb_apply_sub(s.sweep, xpy_raw, c) + self.transfers[
-            0
-        ].prolong(z1)
-
-    # -- fused coarse tail: all sub-128-lane levels in one kernel ----------
-    def _tail_fused_eligible(self, l: int) -> bool:
-        """Can levels l .. n_levels-2 run as ONE Pallas tail kernel
-        (kernels.mg_tail)?  Requires the flagship V(1,0) shape on a
-        fused (unsharded) sampler, FD-form aggregate levels, and lane
-        extents that divide 128 (the duplicated-layout constraint)."""
-        if self.n_pre != 1 or self.n_post != 0 or self.gamma != 1:
-            return False
-        if l < 1 or l > self.n_levels - 2:
-            return False
-        # sharded samplers force impl="lax" everywhere; the tail kernel
-        # (and its strided-lane slices) must only run unsharded/fused
-        if getattr(self.smoothers[0], "impl", "lax") != "fused_fd":
-            return False
-        sweep = self.smoothers[l].sweep
-        if sweep not in ("forward", "backward"):  # symmetric = 2 half-sweeps
-            return False
-        for m in range(l, self.n_levels - 1):
-            s = self.smoothers[m]
-            if s.is_lrc or s.sweep != sweep:
-                return False
-            if not isinstance(self.transfers[m], AggregateTransfer):
-                return False
-            gs = self.ops[m].grid_shape
-            if len(gs) != 3 or any(d % 2 for d in gs):
-                return False
-            # FD form is detected at create time (concrete coefficients)
-            # and carried on the smoother — see GibbsSampler.create
-            if s.fd_params is None:
-                return False
-            if self.ops[m].dtype != jnp.float32:
-                return False
-        gs0 = self.ops[l].grid_shape
-        n2 = gs0[2]
-        if n2 > 128 or 128 % n2:
-            return False
-        # entry layout volume bound: whole-array vector ops at the
-        # (128,128,128) = 2.1M-point layout compile in ~60 s (measured);
-        # larger single ops are untested compile territory.  (The
-        # coarsest level's extents need no separate checks: every tail
-        # n2 is an even divisor of 128, and halving preserves both.)
-        if gs0[0] * gs0[1] * 128 > 128 * 128 * 128:
-            return False
-        return True
-
-    def _fused_tail_cycle(self, l: int, bl, key):
-        """One keyed stochastic cycle over levels l..coarsest with the
-        whole smoothed tail fused into a single kernel; coarse sample
-        (dense matvecs) and the up-phase adds stay in XLA."""
-        from parmgmc_tpu.kernels.mg_tail import LANES, fused_tail_down
-
-        shapes = tuple(
-            tuple(self.ops[m].grid_shape) for m in range(l, self.n_levels)
-        )
-        S1 = shapes[0][1]
-        f0 = LANES // shapes[0][2]
-        params = []
-        for m in range(l, self.n_levels - 1):
-            s = self.smoothers[m]
-            params += [
-                s.omega.astype(jnp.float32),
-                s.fd_params[0].astype(jnp.float32),
-                s.fd_params[1].astype(jnp.float32),
-            ]
-        key, k1, k2_ = jax.random.split(key, 3)
-        seed = jax.random.randint(k1, (), 0, 2**31 - 1, dtype=jnp.int32)
-        stp = jax.random.randint(k2_, (), 0, 2**31 - 1, dtype=jnp.int32)
-        color0 = 0 if self.smoothers[l].sweep == "forward" else 1
-        bl_layout = jnp.broadcast_to(
-            bl[..., None], (*bl.shape, f0)
-        ).reshape(shapes[0][0], S1, LANES)
-        ys, rhs = fused_tail_down(
-            bl_layout,
-            jnp.stack(params),
-            seed,
-            stp,
-            color0,
-            shapes,
-            interpret=jax.default_backend() == "cpu",
-        )
-        # coarse: lane/sublane-compact the rhs and draw the exact sample
-        n0c, n1c, n2c = shapes[-1]
-        bc = rhs[:, :: S1 // n1c, :: LANES // n2c]
-        x = jnp.zeros_like(bc)
-        for _ in range(self.n_coarse):
-            key, x = self.coarse.step(key, x, bc)
-        # up phase: z_m = y_m + P z_{m+1}; in the duplicated layouts the
-        # prolongation is a leading-axis repeat only (see mg_tail)
-        z = jnp.broadcast_to(
-            x[:, :, None, :, None],
-            (n0c, n1c, S1 // n1c, n2c, LANES // n2c),
-        ).reshape(n0c, S1, LANES)
-        for m in reversed(range(len(shapes) - 1)):
-            z = ys[m] + jnp.repeat(z, 2, axis=0)
-        # compact the entry-level correction back to the true grid
-        return z[:, :, ::f0]
-
+    # -- keyed cycle (FMG cold start) ---------------------------------------
     def _cycle_keyed(self, l: int, bl, key):
         if l == self.n_levels - 1:
             x = jnp.zeros_like(bl)
             for i in range(self.n_coarse):
                 key, x = self.coarse.step(key, x, bl)
             return x
-        if self._tail_fused_eligible(l):
-            return self._fused_tail_cycle(l, bl, key)
-        if self._down_fused_eligible(l):
-            x, r, key = self._fused_down(l, bl, key)
-            key, sub = jax.random.split(key)
-            xc = self._cycle_keyed(l + 1, r, sub)
-            return x + self.transfers[l].prolong(xc)
         op = self.ops[l]
         smoother = self.smoothers[l]
         x = jnp.zeros_like(bl)
@@ -928,277 +282,6 @@ class MGMCSampler:
         for i in range(self.n_post):
             key, x = smoother.step(key, x, bl)
         return x
-
-    # -- deferred-prolong chain (lazy fine state) ---------------------------
-    def deferred_eligible(self) -> bool:
-        """Can the chain run with the fine prolong-add DEFERRED into the
-        next step's kernel?  Requires a chain-kernel path at level 0
-        (3D, fused FD, aggregation transfer, N0 % 4): the whole-plane
-        kernel within its VMEM window, or the 2D-tiled one beyond it
-        (both consume a lazy coarse correction — zx2 and zf layouts).
-        LRC (posterior) operators qualify through the rank-k machinery
-        of :meth:`_lrc_chain_step` (needs lrc_aux)."""
-        from parmgmc_tpu.kernels.rb_gibbs import _PLANE_LIMIT
-
-        gs = self.grid_shape
-        if len(gs) != 3 or gs[0] % 4:
-            return False
-        if not (
-            self._lrc_chain_eligible()
-            if getattr(self.smoothers[0] if self.smoothers else None, "is_lrc", False)
-            else self._down_fused_eligible(0)
-        ):
-            return False
-        return gs[1] * gs[2] <= _PLANE_LIMIT or self._chain_level0_2d()
-
-    def _bt_carry(self, z):
-        """B^T (P0 z) for a lazy carry in :meth:`deferred_layout` form:
-        equals B_c^T z_coarse with B_c = ops[1].B (= P^T B, the
-        hierarchy invariant).  Patch columns read tiny strided windows
-        of the carry directly; dense columns compress the carry once."""
-        opc = self.ops[1]
-        layout = self.deferred_layout()
-        if opc.patch_vals is not None:
-            box = opc.patch_vals.shape[1:]
-            outs = []
-            for j in range(opc.k):
-                st = opc.patch_starts[j]
-                if layout == "zx2":  # (n0/2, n1/2, n2), lanes duplicated
-                    win = jax.lax.dynamic_slice(
-                        z, (st[0], st[1], 2 * st[2]),
-                        (box[0], box[1], 2 * box[2]),
-                    )[..., ::2]
-                else:  # zf: (n0/2, n1, n2), in-plane at fine pitch
-                    win = jax.lax.dynamic_slice(
-                        z, (st[0], 2 * st[1], 2 * st[2]),
-                        (box[0], 2 * box[1], 2 * box[2]),
-                    )[:, ::2, ::2]
-                outs.append(jnp.sum(opc.patch_vals[j] * win))
-            return jnp.stack(outs)
-        zc = z[..., ::2] if layout == "zx2" else z[:, ::2, ::2]
-        return opc.bt_apply(zc)
-
-    def deferred_layout(self) -> str:
-        """Layout of the lazy coarse-correction carry: ``"zx2"`` (lanes
-        pre-duplicated, sublanes compressed — the whole-plane kernel's
-        layout, ALSO consumed by the staged 2D kernel when its
-        16-aligned z tiling is feasible: half the carry's HBM bytes) or
-        ``"zf"`` (sublanes AND lanes at fine resolution, leading axis
-        compressed — the windowed 2D kernel's fallback, see
-        ``fused_chain_down_2d``)."""
-        if not self._chain_level0_2d():
-            return "zx2"
-        from parmgmc_tpu.kernels.mg_sweep import chain_down_2d_zx2_supported
-
-        return (
-            "zx2" if chain_down_2d_zx2_supported(self.grid_shape) else "zf"
-        )
-
-    def step_deferred(self, key, xpy, zx2, b):
-        """(key, xpy', z', sum_xpy', zprev_sum): lazy chain step.
-
-        The pair (xpy, z) represents the sample x = xpy + P0 z without
-        materialising it: the add is deferred into the next step's chain
-        kernel, saving ~1.6 fine-grid HBM passes per cycle vs
-        :meth:`step`.  The carry rides in :meth:`deferred_layout` form —
-        ``zx2`` (lanes pre-duplicated, ``zx2[..., k] = z[..., k // 2]``;
-        whole-plane kernel) or ``zf`` (leading axis compressed only,
-        ``zf[m, j, k] = z[m, j // 2, k // 2]``; 2D-tiled kernel) — and
-        is produced in that form directly (the broadcast fuses into the
-        up-phase add, so no separate duplication pass runs).
-        Bit-identical samples to :meth:`step` under the same key (the
-        kernel performs the same adds in the same order).
-
-        QOI plumbing: ``sum_xpy'`` is the sum of this step's xpy'
-        (kernel row sums); ``zprev_sum`` is the ``P0 z`` part of the
-        PREVIOUS sample's global sum (a layout-dependent multiple of the
-        kernel's zsum output), accumulated while the kernel streams the
-        carry, so the chain driver recovers ``sum(x_t) = sum_xpy'_t +
-        zprev_sum_{t+1}`` one step late and never re-reads the fine grid
-        or the carry.  Start from a zero carry (:meth:`deferred_init`);
-        materialise the final state with :meth:`materialize_deferred`.
-        """
-        btxf = None
-        if isinstance(zx2, tuple):  # posterior route: (z, B^T xpy) pair
-            zx2, btxf = zx2
-        key, sub = jax.random.split(key)
-        if self._lrc_chain_eligible():
-            # posterior (LRC): the rank-k recipe of _lrc_chain_step with
-            # B^T x assembled from the lazy pair (xpy, carry) and the
-            # Woodbury correction folded into xpy2 + the xsum bookkeeping
-            from parmgmc_tpu.operators.lrc import patch_apply_add
-
-            op0 = self.fine_op
-            s = self.smoothers[0]
-            aux = self.lrc_aux
-            sub, klr = jax.random.split(sub)
-            w = s.sqrt_sigma_inv * jax.random.normal(
-                klr, (op0.k,), xpy.dtype
-            )
-            btx = (
-                btxf if btxf is not None else op0.bt_apply(xpy)
-            ) + self._bt_carry(zx2)
-            wv = w - op0.sigma_inv * btx
-            H = aux["H"]
-            if "Mb_pv" in aux:
-                # kernel-probed b-response route: static b through the
-                # kernel (with_b=False when b is None), rank-k window
-                # corrections after (attach_chain_b_response)
-                xpy2, rc, sub, xsum, zsum = self._fused_chain_down(
-                    xpy, b, sub, z=zx2, with_xsum=True, with_zsum=True
-                )
-                from parmgmc_tpu.operators.lrc import (
-                    fused_patch_apply_add,
-                )
-
-                u = op0.bt_apply(xpy2)
-                c = (u - btx) + aux["BtMb"] @ wv
-                cc = w + op0.sigma_inv * (c - H @ c)
-                # next step's fine B^T x by identity (deferred_init):
-                # B^T(xpy2 + Mb wv - Bb c) = u + BtMb wv - H c
-                if btxf is not None:
-                    btxf = u + aux["BtMb"] @ wv - H @ c
-                if "CW_pv" in aux:
-                    rc = fused_patch_apply_add(
-                        aux["CW_pv"],
-                        aux["CW_ps"],
-                        jnp.stack([c, wv, -cc]),
-                        rc,
-                    )
-                else:
-                    rc = patch_apply_add(
-                        aux["RB_pv"],
-                        aux["RB_ps"],
-                        wv,
-                        rc + jnp.tensordot(
-                            aux["RABb"], c, axes=((3,), (0,))
-                        ),
-                    )
-                    rc = self.ops[1].b_apply_add(-cc, rc)
-                if "FW_pv" in aux:
-                    xpy2 = fused_patch_apply_add(
-                        aux["FW_pv"],
-                        aux["FW_ps"],
-                        jnp.stack([wv, -c]),
-                        xpy2,
-                    )
-                else:
-                    xpy2 = patch_apply_add(
-                        aux["Mb_pv"], aux["Mb_ps"], wv, xpy2
-                    )
-                    xpy2 = s._bb_apply_sub(s.sweep, xpy2, c)
-                sx = (
-                    jnp.sum(xsum)
-                    + aux["Mb_colsum"] @ wv
-                    - aux["Bb_colsum"] @ c
-                )
-            else:
-                b_eff = (
-                    op0.b_apply(wv) if b is None else op0.b_apply_add(wv, b)
-                )
-                xpy2, rc, sub, xsum, zsum = self._fused_chain_down(
-                    xpy, b_eff, sub, z=zx2, with_xsum=True, with_zsum=True
-                )
-                c = op0.bt_apply(xpy2) - btx
-                cc = w + op0.sigma_inv * (c - H @ c)
-                rc = self.ops[1].b_apply_add(
-                    -cc,
-                    rc + jnp.tensordot(
-                        aux["RABb"], c, axes=((3,), (0,))
-                    ),
-                )
-                xpy2 = s._bb_apply_sub(s.sweep, xpy2, c)
-                sx = jnp.sum(xsum) - aux["Bb_colsum"] @ c
-        else:
-            xpy2, rc, sub, xsum, zsum = self._fused_chain_down(
-                xpy, b, sub, z=zx2, with_xsum=True, with_zsum=True
-            )
-            sx = jnp.sum(xsum)
-        n0, n1, n2 = self.grid_shape
-        sub, sub2 = jax.random.split(sub)
-        layout = self.deferred_layout()
-
-        def expand(a):
-            # duplicate the axes the carry layout leaves at fine pitch:
-            # lanes only (zx2) or both in-plane axes (zf)
-            if layout == "zf":
-                return jnp.broadcast_to(
-                    a[:, :, None, :, None],
-                    (n0 // 2, n1 // 2, 2, n2 // 2, 2),
-                ).reshape(n0 // 2, n1, n2)
-            return jnp.broadcast_to(a[..., None], (*a.shape, 2)).reshape(
-                n0 // 2, n1 // 2, n2
-            )
-
-        zw = 2.0 if layout == "zf" else 4.0
-        if not self._tail_fused_eligible(1) and self._down_fused_eligible(1):
-            # Split level 1 open so its up add and the carry-layout
-            # expansion fuse into ONE XLA pass: zn = dup(y1) + dup(P1 z2)
-            # adds the same operands per element as dup(y1 + P1 z2), so
-            # samples stay bit-identical (A/B at (16,16,512): state, QOI
-            # and final carry all exactly equal), but the level-1
-            # correction z1 never materialises.  Measured 768^3: ~0.3 ms
-            # /step (XLA already fused most of the up1 add into the
-            # broadcast); kept because it is strictly less HBM traffic.
-            # Key threading replicates _cycle_keyed(1, rc, sub2) exactly.
-            y1, r1, sub2 = self._fused_down(1, rc, sub2)
-            sub2, sub3 = jax.random.split(sub2)
-            z2 = self._cycle_keyed(2, r1, sub3)
-            zn = expand(y1) + expand(self.transfers[1].prolong(z2))
-        else:
-            zn = expand(self._cycle_keyed(1, rc, sub2))
-        if btxf is not None:
-            zn = (zn, btxf)
-        return key, xpy2, zn, sx, zw * jnp.sum(zsum)
-
-    def deferred_init(self, dtype, x=None):
-        """Zero lazy carry in this sampler's :meth:`deferred_layout`.
-
-        On the kernel-probed posterior route the carry is the pair
-        ``(z, btxf)`` with ``btxf = B^T x`` for the chain's starting
-        state (zero when ``x`` is omitted — correct for zero starts):
-        each step then recovers the next step's ``B^T x`` from the
-        identity ``B^T x' = B^T xpy_k + (B^T Mb) wv - (B^T Bb) c``
-        instead of re-reading the k fine observation windows."""
-        n0, n1, n2 = self.grid_shape
-        if self.deferred_layout() == "zf":
-            z = jnp.zeros((n0 // 2, n1, n2), dtype)
-        else:
-            z = jnp.zeros((n0 // 2, n1 // 2, n2), dtype)
-        if self.lrc_aux is not None and "Mb_pv" in self.lrc_aux:
-            btxf = (
-                jnp.zeros((self.fine_op.k,), dtype)
-                if x is None
-                else self.fine_op.bt_apply(x).astype(dtype)
-            )
-            return (z, btxf)
-        return z
-
-    def deferred_final_sum(self, z):
-        """sum(P0 z) for a lazy carry: the kernel's zsum covers this one
-        step late, so the LAST sample's z part is reduced here (the
-        factor counts the axes P still duplicates beyond the carry's
-        own pre-duplication)."""
-        if isinstance(z, tuple):
-            z = z[0]
-        zw = 2.0 if self.deferred_layout() == "zf" else 4.0
-        return zw * jnp.sum(z)
-
-    def materialize_deferred(self, xpy, z):
-        """The sample the lazy pair represents: xpy + P0 z (expand the
-        axes the carry layout leaves compressed and add)."""
-        if isinstance(z, tuple):
-            z = z[0]
-        n0, n1, n2 = self.grid_shape
-        if self.deferred_layout() == "zf":
-            zfull = jnp.broadcast_to(
-                z[:, None], (n0 // 2, 2, n1, n2)
-            ).reshape(n0, n1, n2)
-        else:
-            zfull = jnp.broadcast_to(
-                z[:, None, :, None, :], (n0 // 2, 2, n1 // 2, 2, n2)
-            ).reshape(n0, n1, n2)
-        return xpy + zfull
 
     def fmg_init(self, key, b, n_cycles: int = 1):
         """(key, x0): full-multigrid (FMG) cold start.
@@ -1234,35 +317,8 @@ class MGMCSampler:
 
     def step(self, key, x, b, aux=None):
         """One chain step.  ``b=None`` declares a zero RHS (prior
-        sampling): the fused chain kernel then skips the b HBM stream
-        entirely (kernels.mg_sweep ``with_b=False``); other paths
-        substitute explicit zeros.  Samples are bit-identical to
-        passing ``jnp.zeros_like(x)``."""
+        sampling), the same as passing ``jnp.zeros_like(x)``."""
         key, sub = jax.random.split(key)
-        if self._lrc_chain_eligible():
-            return key, self._lrc_chain_step(sub, x, b)
-        if any(
-            getattr(s, "impl", "lax") in ("fused", "fused_fd")
-            for s in self.smoothers
-        ):
-            if self._down_fused_eligible(0) and self.grid_shape[0] % 4 == 0:
-                # Level 0 runs the chain-level kernel: the fine residual,
-                # noise, pre-smooth and state add are one pallas_call, so
-                # the chain update is xpy + P z1 (one XLA fusion).
-                xpy, rc, sub = self._fused_chain_down(x, b, sub)
-                sub, sub2 = jax.random.split(sub)
-                z1 = self._cycle_keyed(1, rc, sub2)
-                return key, xpy + self.transfers[0].prolong(z1)
-            bz = jnp.zeros_like(x) if b is None else b
-            r = bz - self.fine_op.apply(x)
-            if self._down_fused_eligible(0):
-                # Chain kernel needs N0 % 4 == 0; fall back to the v1
-                # down kernel with the state add fused by XLA.
-                y0, rc, sub = self._fused_down(0, r, sub)
-                sub, sub2 = jax.random.split(sub)
-                z1 = self._cycle_keyed(1, rc, sub2)
-                return key, x + y0 + self.transfers[0].prolong(z1)
-            return key, x + self._cycle_keyed(0, r, sub)
         batch = x.shape[len(self.grid_shape) :]
         noises = _draw(sub, self.noise_shapes(), x.dtype, batch)
         return key, self.step_with_noise(x, b, noises)

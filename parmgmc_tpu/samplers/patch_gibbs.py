@@ -9,17 +9,17 @@ conditional
 
     x_S ~ N(A_SS^{-1} (b_S - A_{S,rest} x_rest), A_SS^{-1})
 
-patch by patch.  TPU-native formulation: patches are coloured so that
+patch by patch.  Data-parallel formulation: patches are coloured so that
 same-colour patches are mutually uncoupled (per-axis residues mod
 (radius+3)); one colour pass updates all its patches simultaneously.
 The tiny (k,k) patch systems are handled STRUCTURE-OF-ARRAYS: the
 patch matrix entries live as subgrid-shaped planes and the Cholesky
 factorisation + triangular solves are unrolled over the static k, so
-every op is a plain VPU elementwise op over the colour subgrid.  This
+every op is a plain elementwise op over the colour subgrid.  This
 replaces the reference's per-patch LAPACK ``potrf``/``trsv`` fast path
-(pc_chols.c:174-194) — and deliberately avoids ``(..., k, k)``-shaped
-batched ``lax.linalg`` calls, whose tiny trailing dims pad to (8, 128)
-TPU tiles (a measured 20.9x HBM expansion that OOMed 128^3 setups).
+(pc_chols.c:174-194) and avoids ``(..., k, k)``-shaped batched
+``lax.linalg`` calls, whose tiny trailing dims make poor device
+layouts.
 
 Each patch update is an exact Gibbs conditional, so the whole sweep
 preserves N(A^{-1}b, A^{-1}) exactly — verified by the machine-precision
@@ -66,69 +66,16 @@ def _ingrid_mask(shape, off, dtype):
     return jnp.asarray(m, dtype=dtype)
 
 
-def detect_squared_fd(op) -> "jax.Array | None":
-    """(kappa2, hinv2) of F if ``op == F^2`` for a link-count FD
-    operator F = kappa2 + hinv2 * links (3D, scalar parameters) — the
-    form the FUSED patch-sweep kernel reconstructs in closed form
-    (kernels.patch_sweep).  Recovery: the (0,0,2) coefficient of F^2 is
-    exactly hinv2^2 (one path via the always-in-grid midpoint) and an
-    interior diagonal is (kappa2 + 6 hinv2)^2 + 6 hinv2^2; the
-    candidate is then VERIFIED by probing op.apply against F(F(.)) on
-    random vectors.  Eager-only (returns None on tracers)."""
-    from parmgmc_tpu.operators.stencil import fd_stencil
-
-    if op.ndim != 3 or op.radius != 2:
-        return None
-    cmap = dict(zip(op.offsets, op.coeffs))
-    c2 = cmap.get((0, 0, 2))
-    if c2 is None or getattr(c2, "ndim", 0) != 0:
-        return None
-    try:
-        c2v = float(c2)
-        if c2v <= 0:
-            return None
-        h2 = float(np.sqrt(c2v))
-        ctr = tuple(s // 2 for s in op.grid_shape)
-        dint = float(op.diag[ctr]) - 6.0 * h2 * h2
-        if dint <= 0:
-            return None
-        k2 = float(np.sqrt(dint)) - 6.0 * h2
-        if k2 <= 0:
-            return None
-        F = fd_stencil(op.grid_shape, k2, h2, dtype=op.dtype)
-        key = jax.random.PRNGKey(0)
-        v = jax.random.normal(key, op.grid_shape, op.dtype)
-        want = op.apply(v)
-        got = F.apply(F.apply(v))
-        rel = float(jnp.abs(want - got).max() / jnp.abs(want).max())
-        if rel > 1e-5:
-            return None
-    except jax.errors.ConcretizationTypeError:
-        return None
-    return jnp.stack(
-        [jnp.asarray(k2, jnp.float32), jnp.asarray(h2, jnp.float32)]
-    )
-
-
-@pytree_dataclass(meta=("patch_offsets", "ncolor_base", "impl"))
+@pytree_dataclass(meta=("patch_offsets", "ncolor_base"))
 class PatchGibbsSampler:
-    """Coloured vertex-star block-Gibbs sweep for N(A^{-1}b, A^{-1}).
-
-    ``impl="fused"`` (auto-selected on TPU for squared link-count FD
-    operators) runs the whole 125-colour sweep as ONE Pallas kernel
-    with the state resident in VMEM (kernels.patch_sweep) — measured
-    ~25x the lax colour-pass path at 128^3.  The keyed ``step`` uses
-    it; ``step_with_noise`` (the invariance oracle's probe) always
-    runs the lax path."""
+    """Coloured vertex-star block-Gibbs sweep for N(A^{-1}b, A^{-1})."""
 
     base: StencilOperator
     patch_offsets: tuple  # k member offsets (first = (0,...,0))
     ncolor_base: int  # colours = ncolor_base ** ndim
-    sq_fd_params: "jax.Array | None" = None  # (kappa2, hinv2) of F
-    impl: str = "lax"
 
     @staticmethod
-    def create(op: StencilOperator, impl: str = "auto") -> "PatchGibbsSampler":
+    def create(op: StencilOperator) -> "PatchGibbsSampler":
         assert isinstance(op, StencilOperator)
         d = op.ndim
         patch = [(0,) * d]
@@ -137,40 +84,10 @@ class PatchGibbsSampler:
                 off = [0] * d
                 off[ax] = s
                 patch.append(tuple(off))
-        sq = None
-        if impl in ("auto", "fused"):
-            from parmgmc_tpu.kernels.patch_sweep import (
-                patch_sweep_streaming_supported,
-                patch_sweep_supported,
-                streaming_enabled,
-            )
-
-            # the whole-sweep kernel is Mosaic-only (no interpret
-            # routing; its PRNG cannot run in CPU interpret anyway), so
-            # even an explicit impl="fused" downgrades off-TPU.  Grids
-            # past the VMEM-resident window route to the round-4
-            # HBM-streaming kernel (fused_patch_sweep_sqfd dispatches).
-            on_tpu = jax.default_backend() not in ("cpu", "gpu")
-            if (
-                on_tpu
-                and op.dtype == jnp.float32
-                and op.radius + 3 == 5
-                and (
-                    patch_sweep_supported(op.grid_shape)
-                    or (
-                        streaming_enabled()
-                        and patch_sweep_streaming_supported(op.grid_shape)
-                    )
-                )
-            ):
-                sq = detect_squared_fd(op)
-            impl = "fused" if sq is not None else "lax"
         return PatchGibbsSampler(
             base=op,
             patch_offsets=tuple(patch),
             ncolor_base=op.radius + 3,
-            sq_fd_params=sq,
-            impl=impl,
         )
 
     # -- protocol ------------------------------------------------------------
@@ -209,15 +126,11 @@ class PatchGibbsSampler:
         m^d colours — the HLO is O(1)-size instead of ~30k ops for 125
         unrolled 3D passes (which stalled XLA).
 
-        Launch-count discipline (measured ~0.7 ms of fixed overhead per
-        fused kernel on the attached chip, so dynamic-start ops are the
-        cost driver, NOT arithmetic): each pass performs one
-        ``dynamic_slice`` of the chain-state super-region, one per
-        constants channel actually touched (b, diag, the k noise
-        planes, each array-valued coefficient field — a single stacked
-        5D slice measured 3x SLOWER than per-channel 3D slices), and
-        one ``dynamic_update_slice`` write-back: ~a dozen dynamic-start
-        ops for a 3D star patch.  Every member / stencil access inside
+        Few dynamic-start ops per pass: one ``dynamic_slice`` of the
+        chain-state super-region, one per constants channel actually
+        touched (b, diag, the k noise planes, each array-valued
+        coefficient field), and one ``dynamic_update_slice``
+        write-back: ~a dozen dynamic-start ops for a 3D star patch.  Every member / stencil access inside
         the pass is a STATIC strided view of those regions (the
         super-region carries ``rr = 1 + radius`` extra rings so views
         exist for all member+stencil reach), and the residual is a
@@ -292,8 +205,7 @@ class PatchGibbsSampler:
             masks = [mk * center for mk in masks]
 
             # -- dynamic-start region gathers: one per array actually
-            # touched (a single stacked-5D slice measured 3x SLOWER on
-            # the chip than per-channel 3D slices — generic-copy path)
+            # touched
             st = tuple(a[ax] + m - rr for ax in range(d))
             Sx = jax.lax.dynamic_slice(xp, st, L3)
             reg_cache = {}
@@ -451,24 +363,6 @@ class PatchGibbsSampler:
         return None
 
     def step(self, key, x, b, aux=None):
-        if self.impl == "fused" and self.sq_fd_params is not None:
-            # b=None flows through: the fused kernels drop the whole b
-            # HBM stream for prior sampling (with_b=False), bit-identical
-            # to explicit zeros — the repo-wide zero-RHS convention.
-            from parmgmc_tpu.kernels.patch_sweep import fused_patch_sweep_sqfd
-
-            key, k1, k2 = jax.random.split(key, 3)
-            seed = jax.random.randint(k1, (), 0, 2**31 - 1, dtype=jnp.int32)
-            stp = jax.random.randint(k2, (), 0, 2**31 - 1, dtype=jnp.int32)
-            x = fused_patch_sweep_sqfd(
-                x,
-                b,
-                self.sq_fd_params[0],
-                self.sq_fd_params[1],
-                seed,
-                stp,
-            )
-            return key, x
         if b is None:  # zero-RHS (prior) convention
             b = jnp.zeros_like(x)
         key, sub = jax.random.split(key)

@@ -2,7 +2,7 @@
 
 The reference composes samplers through PETSc's options database with
 hierarchical string prefixes (e.g. ``-gamgmc_mg_levels_pc_type mcgibbs``;
-``src/pc_gamgmc.c:43-58``, ``examples/ex9.py:48-66``).  The TPU-native
+``src/pc_gamgmc.c:43-58``, ``examples/ex9.py:48-66``).  The JAX
 equivalent is an explicit nested dict: every node names a sampler type
 plus its options, and inner samplers are sub-dicts.  Example::
 
@@ -26,55 +26,11 @@ from typing import Callable, Dict
 from parmgmc_tpu.operators.lrc import LRCOperator
 from parmgmc_tpu.samplers.cholesky import CholeskySampler
 from parmgmc_tpu.samplers.gibbs import GibbsSampler
-from parmgmc_tpu.samplers.mgmc import (
-    MGMCSampler,
-    attach_chain_b_response,
-    build_hierarchy,
-    compute_lrc_aux,
-)
+from parmgmc_tpu.samplers.mgmc import MGMCSampler, build_hierarchy
 from parmgmc_tpu.samplers.woodbury import WoodburySampler
 
-__all__ = ["build_sampler", "lax_variant", "register_sampler"]
+__all__ = ["build_sampler", "register_sampler"]
 
-
-def lax_variant(sampler):
-    """The same sampler with every fused Pallas smoother downgraded to
-    the pure-lax sweeps (``impl="lax"``), recursively.
-
-    Two situations need it:
-
-    * **GSPMD sharding** — the Pallas kernels assume whole-array
-      semantics and do not partition (``parallel.shard_sampler`` calls
-      this automatically).
-    * **vmapped multi-chain on TPU** — the fused kernels stream their
-      operands through manual in-kernel DMA, which ``jax.vmap``'s
-      pallas batching rule cannot re-index; vmapping a fused sampler
-      fails at Mosaic lowering (measured 2026-08-19,
-      examples/probe_vmap_pallas.py).  Note that at fused-eligible
-      sizes (256^3+) the chip is bandwidth-bound, so batched chains
-      could not beat one-chain-at-a-time throughput anyway — vmapped
-      chains are the scaling axis for SMALL (launch-bound) problems,
-      which run lax sweeps in the first place.
-
-    The sampler family is unchanged (identical update order and
-    math); only the noise stream differs (threefry instead of the
-    kernels' on-chip counter PRNG).
-    """
-    import dataclasses
-
-    def fix(obj):
-        if hasattr(obj, "impl") and getattr(obj, "impl", "lax") != "lax":
-            obj = dataclasses.replace(obj, impl="lax")
-        for f in ("smoothers",):
-            if hasattr(obj, f):
-                obj = dataclasses.replace(
-                    obj, **{f: tuple(fix(s) for s in getattr(obj, f))}
-                )
-        if hasattr(obj, "sampler"):  # Woodbury wrapper
-            obj = dataclasses.replace(obj, sampler=fix(obj.sampler))
-        return obj
-
-    return fix(sampler)
 
 _REGISTRY: Dict[str, Callable] = {}
 
@@ -145,7 +101,7 @@ def _build_mgmc(op, cfg):
     )
     smoothers = tuple(build_sampler(o, dict(smoother_cfg)) for o in ops[:-1])
     coarse = build_sampler(ops[-1], dict(coarse_cfg))
-    smp = MGMCSampler(
+    return MGMCSampler(
         ops=tuple(ops),
         transfers=transfers,
         smoothers=smoothers,
@@ -155,9 +111,7 @@ def _build_mgmc(op, cfg):
         n_levels=len(ops),
         n_coarse=cfg.pop("n_coarse", 1),
         gamma=cfg.pop("gamma", 1),
-        lrc_aux=compute_lrc_aux(ops, transfers, smoothers),
     )
-    return attach_chain_b_response(smp)
 
 
 @register_sampler("woodbury")

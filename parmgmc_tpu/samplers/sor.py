@@ -1,6 +1,6 @@
 """Multicolor SOR / Gauss-Seidel sweeps on stencil operators.
 
-TPU-native rebuild of the reference's multicolour sweep kernel
+JAX rebuild of the reference's multicolour sweep kernel
 (``/root/reference/src/mc_sor.c:241-381``).  Instead of a CSR row loop
 over JP-colored index sets with per-color MPI ghost scatters, we exploit
 the structured grid: a parity coloring is a valid distance-1 coloring for
@@ -11,7 +11,7 @@ any 3^d stencil —
 * dense 3^d stencils (Galerkin-coarsened): 2^d colors by per-coordinate
   parity.
 
-Each color update is one masked, fully-vectorised stencil pass (VPU work);
+Each color update is one masked, fully-vectorised stencil pass;
 colors are applied sequentially, which preserves the Gauss-Seidel
 dependency structure exactly as the reference's color loop does.  The
 deterministic forward sweep from ``x`` computes
@@ -111,7 +111,7 @@ def natural_sweep(
     The production equivalent of the reference's PCPARSOR
     (``src/pc_parsor.c:703-878``), which keeps the exact lexicographic
     update order across MPI ranks with a dependency-driven dataflow
-    pipeline.  The TPU-native scheduling is the classic wavefront
+    pipeline.  The data-parallel scheduling is the classic wavefront
     observation: for a STAR stencil every lower-lexicographic neighbour
     of a cell has a strictly smaller coordinate sum and no two
     equal-sum cells couple, so updating whole anti-diagonal hyperplanes
@@ -127,7 +127,7 @@ def natural_sweep(
     fully-vectorised masked pass — the price of exact natural order
     (the multicolour ``sor_sweep`` needs only r + 1 passes, and the
     measured IACT/spectral-radius gap between the two orderings is
-    zero for this operator family; BENCH_NOTES).
+    zero for this operator family; docs/samplers.md).
     """
     if sweep == "symmetric":
         x = natural_sweep(op, b, x, omega, "forward")
@@ -193,6 +193,8 @@ class NaturalGibbsSampler:
         return [{"eta": self.base.grid_shape} for _ in range(halves)]
 
     def step_with_noise(self, x, b, noises):
+        if b is None:  # zero-RHS (prior) convention
+            b = jnp.zeros_like(x)
         if self.sweep == "symmetric":  # fresh noise per half-sweep
             x = natural_sweep(
                 self.base,

@@ -30,7 +30,7 @@ import jax
 import jax.numpy as jnp
 
 from parmgmc_tpu._pytree import pytree_dataclass
-from parmgmc_tpu.operators.lrc import LRCOperator
+from parmgmc_tpu.operators.lrc import HIGHEST, LRCOperator
 from parmgmc_tpu.samplers.gibbs import _draw
 
 __all__ = ["WoodburySampler"]
@@ -78,11 +78,16 @@ class WoodburySampler:
         ndim = base.ndim
         # (k, k) = B^T C: contract grid axes only
         BtC = jnp.tensordot(
-            jnp.moveaxis(B, -1, 0), jnp.moveaxis(C, -1, 0), axes=(tuple(range(1, ndim + 1)),) * 2
+            jnp.moveaxis(B, -1, 0),
+            jnp.moveaxis(C, -1, 0),
+            axes=(tuple(range(1, ndim + 1)),) * 2,
+            precision=HIGHEST,
         )
         small = jnp.diag(1.0 / sigma_inv) + BtC  # Sigma + B^T A^{-1} B
         Sb = jnp.linalg.solve(small, jnp.eye(k, dtype=B.dtype))
-        G = jnp.tensordot(jnp.moveaxis(C, -1, 0), Sb, axes=((0,), (0,)))
+        G = jnp.tensordot(
+            jnp.moveaxis(C, -1, 0), Sb, axes=((0,), (0,)), precision=HIGHEST
+        )
         return WoodburySampler(
             sampler=sampler, B=B, sqrt_sigma_inv=jnp.sqrt(sigma_inv), G=G
         )
@@ -106,14 +111,21 @@ class WoodburySampler:
         }
 
     def step_with_noise(self, x, b, noises):
+        if b is None:  # zero-RHS (prior) convention
+            b = jnp.zeros_like(x)
         ndim = self.B.ndim - 1
         w = b + jnp.tensordot(
-            self.B, self.sqrt_sigma_inv * noises["eta_lr"], axes=((ndim,), (0,))
+            self.B,
+            self.sqrt_sigma_inv * noises["eta_lr"],
+            axes=((ndim,), (0,)),
+            precision=HIGHEST,
         )
         y = self.sampler.step_with_noise(x, w, noises["inner"])
         axes = tuple(range(ndim))
-        bty = jnp.tensordot(self.B, y, axes=(axes, axes))
-        return y - jnp.tensordot(self.G, bty, axes=((ndim,), (0,)))
+        bty = jnp.tensordot(self.B, y, axes=(axes, axes), precision=HIGHEST)
+        return y - jnp.tensordot(
+            self.G, bty, axes=((ndim,), (0,)), precision=HIGHEST
+        )
 
     def prepare(self, b):
         return None

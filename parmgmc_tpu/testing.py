@@ -25,7 +25,7 @@ import math
 import jax
 import jax.numpy as jnp
 
-__all__ = ["transition_matrices", "invariance_error"]
+__all__ = ["transition_matrices", "invariance_error", "sharded_step_error"]
 
 
 def _flatten_shapes(shapes):
@@ -77,3 +77,23 @@ def invariance_error(sampler, op, b):
     cov_err = jnp.max(jnp.abs(G @ Ainv @ G.T + K @ K.T - Ainv))
     scale = jnp.max(jnp.abs(Ainv))
     return mean_err / jnp.maximum(jnp.max(jnp.abs(mu)), 1e-30), cov_err / scale
+
+
+def sharded_step_error(sampler, mesh, x, b, noises, min_local=4, grid_axes=None):
+    """(rel_err, out): one ``step_with_noise`` of ``sampler`` sharded over
+    ``mesh`` (:func:`parallel.mesh.shard_sampler`) against the same step
+    on one device, with the same explicit noise.  ``rel_err`` is the
+    max-norm difference relative to the single-device result's max."""
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from parmgmc_tpu.parallel.mesh import shard_sampler
+
+    step = jax.jit(lambda s, xx, bb, nn: s.step_with_noise(xx, bb, nn))
+    ref = step(sampler, x, b, noises)
+    smp_sh, xsh = shard_sampler(sampler, mesh, min_local, grid_axes)
+    put = lambda a: None if a is None else jax.device_put(a, xsh)
+    noises_r = jax.device_put(noises, NamedSharding(mesh, PartitionSpec()))
+    out = step(smp_sh, put(x), put(b), noises_r)
+    ref = jax.device_put(ref, out.sharding)
+    err = jnp.max(jnp.abs(out - ref)) / jnp.max(jnp.abs(ref))
+    return float(err), out

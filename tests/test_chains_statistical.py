@@ -195,47 +195,3 @@ def test_sample_chains_vmapped_facade():
     pooled = np.concatenate([q, q2], axis=1).mean()
     sd = np.concatenate([q, q2], axis=1).std() / np.sqrt(4 * 400 / 4.0)
     assert abs(pooled) < 5 * sd + 1e-3
-
-
-def test_lax_variant_downgrades_fused_samplers():
-    """lax_variant recursively replaces fused impls so vmapped
-    multi-chain works (fused Pallas kernels' manual DMA does not batch
-    — probe_vmap_pallas.py / probe_multichain.py, 2026-08-19)."""
-    from parmgmc_tpu import lax_variant
-    from parmgmc_tpu.operators.lrc import LRCOperator
-    from parmgmc_tpu.samplers.woodbury import WoodburySampler
-
-    op = shifted_laplace_fd((8, 8), 1.0, dtype=jnp.float32)
-    smp = MGMCSampler.create(op, n_levels=2)
-    # Force a non-lax impl marker even on CPU to exercise the downgrade.
-    import dataclasses
-
-    smp = dataclasses.replace(
-        smp,
-        smoothers=tuple(
-            dataclasses.replace(s, impl="fused_fd") for s in smp.smoothers
-        ),
-    )
-    fixed = lax_variant(smp)
-    assert all(s.impl == "lax" for s in fixed.smoothers)
-
-    # Woodbury wrapper: the inner sampler is downgraded too.
-    Bf = jnp.ones((*op.grid_shape, 2), jnp.float32)
-    lrc = LRCOperator(base=op, B=Bf, sigma_inv=jnp.ones((2,), jnp.float32))
-    inner = dataclasses.replace(
-        GibbsSampler.create(op), impl="fused_fd"
-    )
-    wb = WoodburySampler.create(lrc, inner)
-    assert lax_variant(wb).sampler.impl == "lax"
-
-    # The downgraded sampler vmaps (the original intent of the helper).
-    keys = jax.random.split(jax.random.PRNGKey(0), 3)
-
-    def one(key):
-        st = init_chain(fixed, key)
-        st2, _ = sample_chain(fixed, st, None, 4)
-        return st2.x
-
-    xs = jax.jit(jax.vmap(one))(keys)
-    assert xs.shape == (3, 8, 8)
-    assert bool(jnp.all(jnp.isfinite(xs)))

@@ -1,5 +1,5 @@
 """Row-partitioned mesh SPMD (parallel/graph_sharded): the mc_sor
-row-distribution + per-colour ghost-scatter capability, TPU-native.
+row-distribution + per-colour ghost-scatter capability, on device meshes.
 
 Exactness contract: the sharded multicolour sweep applies the SAME
 operator as the single-device sweep (colour-internal updates are

@@ -1,7 +1,6 @@
-"""Chain-major multichain layout (round 4): x of shape (n, C) advances C
+"""Chain-major multichain layout: x of shape (n, C) advances C
 independent chains through ONE keyed step, with every ELL gather
-amortized over the trailing chain axis (~4.4x the vmapped wrench sweep
-on TPU — examples/probe_mesh_multichain.py).
+amortized over the trailing chain axis.
 
 Correctness contract tested here:
   * batched ops/sweeps == per-column unbatched (bitwise for the pure

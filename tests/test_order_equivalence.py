@@ -12,8 +12,7 @@ iteration operator, not the quality of the sampler:
 * the integrated autocorrelation time of the domain-mean QOI — computed
   EXACTLY from tau = 1 + 2 sum_k c'G^k Sigma c / c'Sigma c, no Monte
   Carlo noise — agrees across lexicographic, red/black (2-colour) and
-  4-colour orderings to a small factor (measured numbers in
-  BENCH_NOTES.md).
+  4-colour orderings to a small factor (numbers in docs/samplers.md).
 """
 
 import math

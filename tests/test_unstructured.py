@@ -1,7 +1,7 @@
 """Unstructured-mesh path: FEM assembly, graph operators, algebraic MGMC.
 
 Covers the reference's MS/DMPlex + GAMG capabilities (ms.c, pc_gamgmc.c
-algebraic mode, ex2/ex13 flows) on the TPU-native stack: Gmsh parsing,
+algebraic mode, ex2/ex13 flows) on the JAX stack: Gmsh parsing,
 P1 assembly, colour-blocked ELL operators, smoothed-aggregation
 hierarchies — with the same machine-precision invariance oracles as the
 structured path.
